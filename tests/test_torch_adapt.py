@@ -4,7 +4,8 @@ The batched step is held against `make_batched_ttl_fn` on the same bridged
 weights, views and `adapters0`, with the JAX side on the bshd kernel route
 (`force_mode("bshd")`, Pallas in interpret mode). Adapted logits must agree
 within rtol/atol 5e-4, the bound of tests/test_composite_oracle.py: f32 sums
-in another order through the window forward, backward and AdamW.
+in another order through the window forward, backward and AdamW. With the
+int8 prefix, see the bound of `test_batched_step_with_int8_prefix_matches_jax`.
 """
 import jax
 import jax.numpy as jnp
@@ -18,6 +19,7 @@ from ttl_tpu.models.clip import init_clip_params
 from ttl_tpu.models.zoo import TEST_TINY as J_TINY
 from ttl_tpu.ops import attention as jfa
 from ttl_tpu.ops.entropy import deyo_loss as j_deyo_loss
+from ttl_tpu.ops import quant as jq
 from ttl_tpu.ops.lora import init_adapters as j_init_adapters
 from ttl_tpu_torch.adapt.ttl import make_batched_ttl_fn
 from ttl_tpu_torch.models.convert import adapters_from_numpy, params_from_numpy
@@ -128,3 +130,26 @@ def test_no_kept_view_skips_the_update(setup):
     np.testing.assert_allclose(want, zero_shot, rtol=0, atol=1e-6)
     np.testing.assert_allclose(res.logits.numpy(), want, rtol=5e-4,
                                atol=5e-4)
+
+
+def test_batched_step_with_int8_prefix_matches_jax(setup):
+    """The step with the 2-layer prefix int8 (`--prefix_quant int8`), on
+    the bridged JAX int8 copy. The int8 codes depend on f32 sums taken in
+    another order, so a code can flip (tests/test_torch_quant.py). A flip
+    is one rounding gone the other way among the thousands whose sum is the
+    whole int8 effect (JAX int8 against JAX fp), so the bound is the f32
+    step's 5e-4 plus a quarter of that effect; the effect itself must exceed
+    the bound, so a step that ignored the int8 copy would fail."""
+    params, adapters0, text_cls, views = setup
+    cfg = _cfg(tta_steps=1, prefix_quant="int8")
+    qparams = jax.tree.map(np.asarray, jq.attach_prefix_quant(
+        params, jq.quant_prefix_len(cfg, J_TINY), drop_fp=True))
+    assert qparams["vision"]["prefix_q"]["ln1"]["scale"].shape[0] == 2
+    want, _ = _jax_step(cfg, qparams, adapters0, text_cls, views)
+    fp, _ = _jax_step(cfg, params, adapters0, text_cls, views)
+    got = _torch_step(cfg, qparams, adapters0, text_cls, views).logits.numpy()
+    effect = np.abs(want - fp).max()
+    bound = 5e-4 + 0.25 * effect
+    assert effect > bound
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    assert np.abs(got - want).max() <= bound

@@ -5,7 +5,8 @@ held against `ttl_tpu.ops.attention.attention_bshd_fused`, which runs the
 Pallas kernels in interpret mode on the CPU. Inputs are made with numpy.
 Tolerances: forward rtol/atol 2e-5 and VJP rtol 2e-4 / atol 2e-5 at f32,
 the bounds of the JAX package's own kernel tests (f32 sums in another
-order). The CUDA kernel cases run only where a card is present.
+order). The CUDA kernel cases run only where a card is present; they cover
+every route, the key-tiled one at ViT-L/14@336px's 592 tokens included.
 """
 import jax
 import jax.numpy as jnp
@@ -76,12 +77,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tfa.bshd_backward_cuda(q, k, v, q, 2, 16)
 
 
-def test_refused_geometry_raises_not_implemented():
-    """The entry points return cudaErrorInvalidValue only for tiles that do
-    not fit (the wrappers check everything else first)."""
+def test_kernel_error_raises_with_the_cuda_message(monkeypatch):
+    """Every geometry has a route that fits shared memory, so an error code
+    from an entry point is a fault: it raises with CUDA's own message."""
+    class FakeLibrary:
+        @staticmethod
+        def ttl_cuda_error_string(code):
+            return f"error {code}".encode()
+
+    monkeypatch.setattr(_build, "library", lambda: FakeLibrary)
     _build.check(0, "ok")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 3"):
-        _build.check(_build.CUDA_ERROR_INVALID_VALUE, "bshd attention")
+    with pytest.raises(RuntimeError, match=r"bshd attention failed: CUDA "
+                       r"error 1 \(error 1\)"):
+        _build.check(1, "bshd attention")
 
 
 def test_causal_plain_matches_einsum_reference():
@@ -117,10 +125,17 @@ KERNEL_CASES = [
     # the kernel keeps f32 -> a few bf16 ulps of the largest gradient
     (8, 208, 12, 64, 197, torch.bfloat16, 1e-2, 2e-2),
     (3, 37, 2, 32, 30, torch.bfloat16, 1e-2, 2e-2),
-    # ViT-L/14's 272 tokens; past 288 keys the bf16 forward takes the FMA
-    # kernel
+    # ViT-L/14's 272 tokens; past 288 keys the bf16 forward takes the
+    # key-tiled kernel
     (2, 272, 4, 64, 257, torch.bfloat16, 1e-2, 2e-2),
     (2, 304, 4, 64, 290, torch.bfloat16, 1e-2, 2e-2),
+    # the key-tiled route: ViT-L/14@336px (577 tokens padded to 592) in both
+    # dtypes, ViT-L/14 (257 padded to 272) in the f32 backward
+    (2, 592, 16, 64, 577, torch.float32, 1e-5, 1e-4),
+    (2, 592, 16, 64, 577, torch.bfloat16, 1e-2, 2e-2),
+    (2, 272, 16, 64, 257, torch.float32, 1e-5, 1e-4),
+    (2, 272, 16, 64, 257, torch.bfloat16, 1e-2, 2e-2),
+    (1, 100, 2, 32, 70, torch.float32, 1e-5, 1e-4),   # ragged last tiles
 ]
 
 
@@ -149,21 +164,20 @@ def test_kernels_match_plain_on_card(cuda_device, b, s, h, d, seq_len, dtype,
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_tiles_past_shared_memory(cuda_device):
-    """ViT-L/14@336px (577 tokens padded to 592) fits neither kernel, and
-    ViT-L/14 (257 padded to 272) not the f32 backward."""
-    q = torch.zeros(1, 592, 16 * 64, device=cuda_device,
-                    dtype=torch.bfloat16)
-    q32 = torch.zeros(1, 272, 16 * 64, device=cuda_device)
-    tfa.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.bshd_forward_cuda(q, q, q, 16, 577)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.bshd_backward_cuda(q, q, q, q, 16, 577)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.bshd_backward_cuda(q32, q32, q32, q32, 16, 257)
-    assert (tfa.attention_bshd.fwd_launches,
-            tfa.attention_bshd.bwd_launches) == (0, 0)
+@pytest.mark.parametrize("backward,dtype,s,route", [
+    (False, torch.bfloat16, 208, "tensor cores"),     # ViT-B/16
+    (True, torch.bfloat16, 208, "tensor cores"),
+    (False, torch.float32, 208, "key-tiled FMA"),     # every FMA forward
+    (True, torch.float32, 208, "whole-head FMA"),
+    (True, torch.bfloat16, 272, "whole-head FMA"),    # ViT-L/14
+    (True, torch.float32, 272, "key-tiled FMA"),
+    (False, torch.bfloat16, 592, "key-tiled FMA"),    # ViT-L/14@336px
+    (True, torch.float32, 592, "key-tiled FMA"),
+])
+def test_kernel_route_per_geometry(cuda_device, backward, dtype, s, route):
+    """Tensor cores where they fit; then the key-tiled forward, and the
+    whole-head backward where it fits shared memory."""
+    assert tfa.kernel_route(backward, dtype, s, 64) == route
 
 
 @pytest.mark.cuda

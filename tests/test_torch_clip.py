@@ -189,3 +189,23 @@ def test_weight_bridge_round_trip():
     cast = params_from_numpy(_np_tree(params), "cpu",
                              param_dtype=torch.float32)
     assert cast["text"]["token_embed"].dtype == torch.float32
+
+
+def test_ensemble_classifier_matches_jax(setup, monkeypatch):
+    """3 templates x 3 classes, one global EOT-truncated length, f32; the 9
+    prompts go through the text tower in batches of 4."""
+    params, _, _ = setup
+    monkeypatch.setattr(tprompts, "ENSEMBLE_BATCH", 4)
+    templates = ["a photo of a {}.", "a drawing of the {}.",
+                 "itap of my {} in the garden."]
+    want = np.asarray(jprompts.build_ensemble_classifier(
+        params["text"], CLASSES, J_TINY.text, templates=templates,
+        compute_dtype=jnp.float32))
+    tp = params_from_numpy(params, "cpu")
+    got = tprompts.build_ensemble_classifier(
+        tp["text"], CLASSES, TEST_TINY.text, device="cpu",
+        templates=templates, compute_dtype=torch.float32)
+    assert got.shape == (3, TEST_TINY.text.proj_dim)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    assert tprompts.load_imagenet_templates() == \
+        jprompts.load_imagenet_templates()

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from ttl_tpu.ops.image import make_view_fn
+from ttl_tpu.ops.image import make_view_fn, preprocess_center
 from ttl_tpu_torch.ops import image as timg
 
 OUT = 32
@@ -85,3 +85,22 @@ def test_draws_depend_only_on_seed_and_index():
     assert not torch.equal(a["area"], c["area"])
     assert ((a["area"] >= 0.08) & (a["area"] < 1.0)).all()
     assert a["flip"].dtype == torch.bool and a["flip"].shape == (N_VIEWS - 1,)
+
+
+@pytest.mark.parametrize("canvas,sizes", [
+    (48, [(48, 48), (20, 33)]),
+    (40, [(17, 40), (40, 9)]),
+])
+def test_preprocess_center_matches_jax(canvas, sizes):
+    """The zero-shot eval view: the centered short-side square, resized."""
+    rng = np.random.default_rng(1)
+    canv = _canvases(rng, canvas, sizes)
+    want = np.stack([np.asarray(jax.jit(
+        lambda c, h, w: preprocess_center(c, h, w, OUT))(
+            jnp.asarray(canv[i]), h, w)) for i, (h, w) in enumerate(sizes)])
+    got = timg.preprocess_center(
+        torch.from_numpy(canv), torch.tensor([h for h, _ in sizes]),
+        torch.tensor([w for _, w in sizes]), OUT)
+    assert got.shape == (len(sizes), 3, OUT, OUT)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)

@@ -4,7 +4,13 @@
   package's `make_fused_ttl_fn` on the same weights, given JAX's own view
   draws (pulled from the same key splits): within 5e-4, the bound of
   tests/test_composite_oracle.py.
-- `ttl_tpu_torch.runner.run` end to end on a tiny synthetic dataset.
+- The zero-shot step (center view, `--tta_steps 0`) against
+  `make_fused_zeroshot_fn`, with the fp tower (1e-4, as the towers) and with
+  the whole tower int8 and its fp stack dropped (top-1, and a bound argued
+  as in tests/test_torch_adapt.py).
+- `ttl_tpu_torch.runner.run` end to end on a tiny synthetic dataset, in the
+  default mode, with `--prefix_quant int8`, and zero-shot with the int8
+  tower and the ensemble classifier.
 - The port's runtime imports no JAX; its CLI refuses to run without CUDA and
   raises on flags it does not cover yet.
 """
@@ -20,16 +26,18 @@ import torch
 from test_torch_image import jax_draws, stack_draws
 
 from ttl_tpu.adapt.ttl import make_fused_ttl_fn as j_make_fused
+from ttl_tpu.adapt.ttl import make_fused_zeroshot_fn as j_make_zeroshot
 from ttl_tpu.adapt.ttl import sample_key
 from ttl_tpu.config import TTLConfig
 from ttl_tpu.data.views import ArrayDataset
 from ttl_tpu.models.clip import init_clip_params
 from ttl_tpu.models.zoo import TEST_TINY as J_TINY
 from ttl_tpu.ops import attention as jfa
+from ttl_tpu.ops import quant as jq
 from ttl_tpu.ops.lora import init_adapters as j_init_adapters
 from ttl_tpu_torch import cli as tcli
 from ttl_tpu_torch import runner as trunner
-from ttl_tpu_torch.adapt.ttl import make_fused_ttl_fn
+from ttl_tpu_torch.adapt.ttl import make_fused_ttl_fn, make_fused_zeroshot_fn
 from ttl_tpu_torch.models.convert import adapters_from_numpy, params_from_numpy
 from ttl_tpu_torch.models.zoo import TEST_TINY
 
@@ -73,7 +81,49 @@ def test_fused_slice_matches_jax():
                                atol=5e-4)
 
 
-def test_runner_end_to_end_on_cpu(tmp_path, capsys):
+def test_zeroshot_step_matches_jax():
+    """fp tower, then the whole tower int8 with the fp stack dropped."""
+    cfg = TTLConfig(arch="test-tiny", resolution=64, tta_steps=0,
+                    compute_dtype="float32", param_dtype="float32")
+    params = jax.tree.map(np.array, init_clip_params(
+        jax.random.PRNGKey(0), J_TINY, param_dtype=jnp.float32))
+    qparams = jax.tree.map(np.asarray, jq.attach_prefix_quant(
+        params, jq.quant_prefix_len(cfg, J_TINY), drop_fp=True))
+    assert qparams["vision"]["layers"]["ln1"]["scale"].shape[0] == 0
+    rng = np.random.default_rng(6)
+    text_cls = rng.standard_normal((N_CLS, J_TINY.vision.proj_dim))
+    text_cls = (text_cls / np.linalg.norm(text_cls, axis=-1, keepdims=True)
+                ).astype(np.float32)
+    canv = np.zeros((len(SIZES), CANVAS, CANVAS, 3), np.uint8)
+    for i, (h, w) in enumerate(SIZES):
+        canv[i, :h, :w] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    hs = np.array([h for h, _ in SIZES], np.int32)
+    ws = np.array([w for _, w in SIZES], np.int32)
+
+    def jax_logits(p):
+        with jfa.force_mode("bshd"):
+            return np.asarray(j_make_zeroshot(J_TINY, cfg)(
+                p, jnp.asarray(text_cls), jnp.asarray(canv), jnp.asarray(hs),
+                jnp.asarray(ws), jnp.arange(len(SIZES))))
+
+    def port_logits(p):
+        return make_fused_zeroshot_fn(TEST_TINY, cfg)(
+            params_from_numpy(p, "cpu"), torch.from_numpy(text_cls),
+            torch.from_numpy(canv), torch.from_numpy(hs),
+            torch.from_numpy(ws)).numpy()
+
+    want_fp, want_q = jax_logits(params), jax_logits(qparams)
+    got_fp, got_q = port_logits(params), port_logits(qparams)
+    assert got_q.shape == (len(SIZES), N_CLS)
+    np.testing.assert_allclose(got_fp, want_fp, rtol=1e-4, atol=1e-4)
+    effect = np.abs(want_q - want_fp).max()
+    bound = 1e-4 + 0.25 * effect
+    assert effect > bound
+    np.testing.assert_array_equal(got_q.argmax(-1), want_q.argmax(-1))
+    assert np.abs(got_q - want_q).max() <= bound
+
+
+def _run_end_to_end(tmp_path, capsys, **mode):
     rng = np.random.default_rng(0)
     ds = ArrayDataset(rng.integers(0, 256, (5, 40, 56, 3), dtype=np.uint8),
                       np.array([3, 1, 4, 1, 5]))
@@ -81,7 +131,7 @@ def test_runner_end_to_end_on_cpu(tmp_path, capsys):
     cfg = TTLConfig(arch="test-tiny", resolution=64, batch_size=V,
                     sample_batch=2, compute_dtype="float32",
                     param_dtype="float32", print_freq=1, workers=1,
-                    results_json=str(out))
+                    results_json=str(out), **mode)
     res = trunner.run(cfg, device="cpu", datasets={"A": ds})
     top1, top5 = res["A"]
     assert 0.0 <= top1 <= top5 <= 100.0
@@ -92,9 +142,22 @@ def test_runner_end_to_end_on_cpu(tmp_path, capsys):
         top5, 4)
 
 
+def test_runner_end_to_end_on_cpu(tmp_path, capsys):
+    _run_end_to_end(tmp_path, capsys)
+
+
+@pytest.mark.parametrize("mode", [
+    {"prefix_quant": "int8"},
+    {"prefix_quant": "int8", "tta_steps": 0, "ensemble": True}])
+def test_runner_end_to_end_int8_and_zero_shot(tmp_path, capsys, mode):
+    _run_end_to_end(tmp_path, capsys, **mode)
+
+
 def test_runtime_imports_no_jax():
     code = ("import sys, ttl_tpu_torch, ttl_tpu_torch.runner, "
-            "ttl_tpu_torch.cli; assert 'jax' not in sys.modules, "
+            "ttl_tpu_torch.cli, ttl_tpu_torch.ops.quant, "
+            "ttl_tpu_torch.adapt.ttl, ttl_tpu_torch.models.prompts; "
+            "assert 'jax' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith('jax'))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
@@ -108,11 +171,26 @@ def test_cli_refuses_to_run_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--lora_encoder", "text"], ["--cocoop"], ["--tta_steps", "0"],
-    ["--filter_plpd", "1"], ["--prefix_quant", "int8"], ["-a", "RN50"],
+    ["--lora_encoder", "text"], ["--cocoop"], ["--lora_encoder", "prompt"],
+    ["--filter_plpd", "1"], ["--checkpoint_path", "clip.pt"], ["-a", "RN50"],
+    ["--tta_steps", "0", "--cocoop"], ["--aug_list", "rotate"],
 ])
 def test_uncovered_flags_raise(flags):
     args = tcli.build_parser().parse_args(["data", *flags])
     cfg = tcli.config_from_args(args)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trunner.run(cfg, device="cpu", datasets={})
+
+
+def test_prefix_quant_other_than_int8_raises_value_error():
+    cfg = TTLConfig(arch="test-tiny", prefix_quant="int4")
+    with pytest.raises(ValueError, match="int4"):
+        trunner.run(cfg, device="cpu", datasets={})
+
+
+@pytest.mark.parametrize("mode", [{"cocoop": True},
+                                  {"lora_encoder": "text"}])
+def test_ensemble_outside_image_lora_raises_value_error(mode):
+    cfg = TTLConfig(arch="test-tiny", ensemble=True, **mode)
+    with pytest.raises(ValueError, match="--ensemble"):
+        trunner.evaluate_dataset("A", cfg, None, None, None, device="cpu")

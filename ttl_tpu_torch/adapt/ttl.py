@@ -1,7 +1,9 @@
-"""The TTL episodic adaptation step, batched over test samples.
+"""The TTL episodic adaptation step, batched over test samples, and the
+zero-shot step.
 
-Counterpart of `make_ttl_adapt_fn` (image mode), `make_batched_ttl_fn` and
-`make_fused_ttl_fn` in `ttl_tpu/adapt/ttl.py`. For S samples of V views:
+Counterpart of `make_ttl_adapt_fn` (image mode), `make_batched_ttl_fn`,
+`make_fused_ttl_fn` and `make_fused_zeroshot_fn` in `ttl_tpu/adapt/ttl.py`.
+For S samples of V views:
 
 1. the frozen prefix runs once over all S*V views under `torch.no_grad()`;
 2. each update step runs the LoRA window forward and backward with one
@@ -25,10 +27,10 @@ import torch
 from ttl_tpu.config import (TTLConfig, effective_update_steps,
                             resolve_layer_range)
 
-from ..models.clip import (CLIPConfig, l2_normalize, vision_from_hidden,
-                           vision_prefix)
+from ..models.clip import (CLIPConfig, encode_image, l2_normalize,
+                           vision_from_hidden, vision_prefix)
 from ..ops.entropy import deyo_loss
-from ..ops.image import Draws, render_views
+from ..ops.image import Draws, preprocess_center, render_views
 from ..ops.lora import lora_scale
 
 # torch.optim.AdamW defaults, as the reference and the JAX package use them
@@ -55,13 +57,9 @@ def check_supported(cfg: TTLConfig) -> None:
         (cfg.lora_encoder == "prompt", "--lora_encoder prompt (TPT)", 10),
         (not cfg.deyo_selection, "deyo_selection=False (TPT on LoRA)", 10),
         (cfg.cocoop, "--cocoop", 11),
-        (cfg.ensemble, "--ensemble", 12),
-        (cfg.tta_steps == 0, "--tta_steps 0 (zero-shot)", 12),
         (bool(cfg.filter_plpd), "--filter_plpd", 13),
         (len(cfg.aug_ops) > 0, "--aug_list (AugMix)", 13),
         (cfg.checkpoint_path is not None, "--checkpoint_path", 14),
-        (cfg.prefix_quant != "none", f"--prefix_quant {cfg.prefix_quant}",
-         15),
         (cfg.mesh_shape is not None, "--mesh_shape", 17),
     ]
     for hit, what, item in unsupported:
@@ -172,3 +170,20 @@ def make_fused_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig):
         return batched(params, text_cls, adapters0, views)
 
     return fused
+
+
+def make_fused_zeroshot_fn(clip_cfg: CLIPConfig, cfg: TTLConfig):
+    """Center view + zero-shot classification (tta_steps 0):
+    f(params, text_cls [C, P], canvases [S, C, C, 3] uint8, hs [S], ws [S])
+    -> logits [S, C]. It consumes no randomness."""
+    cd = compute_dtype(cfg)
+
+    @torch.no_grad()
+    def zeroshot(params, text_cls, canvases, hs, ws) -> torch.Tensor:
+        views = preprocess_center(canvases, hs, ws, cfg.resolution,
+                                  out_dtype=cd)
+        vf = l2_normalize(encode_image(params["vision"], views,
+                                       clip_cfg.vision, compute_dtype=cd))
+        return torch.exp(params["logit_scale"]) * vf @ text_cls.T
+
+    return zeroshot

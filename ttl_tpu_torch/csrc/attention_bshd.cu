@@ -22,7 +22,10 @@
 // head) forward for 2*S*D*2 B of k/v, so the kernels are bound by
 // arithmetic and by shared-memory traffic feeding it. bf16 inputs run on
 // the tensor cores (WMMA, the mma.sync path; wgmma is later work); f32
-// inputs, and geometries whose tiles do not fit, run on f32 FMA.
+// inputs, and geometries whose tiles do not fit, run on f32 FMA. Every FMA
+// forward, and every backward where not even a whole head's K and V with
+// the score rows beside them fit the 227 KB (ViT-L/14@336px), streams K and
+// V through key-tiled kernels.
 //
 // Design:
 //   forward, bf16 (bshd_fwd_tc_kernel): grid (head, batch). A block stages
@@ -37,11 +40,6 @@
 //             dK += dS^T Q in registers. f32 operands (P, dS) enter the
 //             tensor cores split into two bf16 terms, which keeps f32-grade
 //             products.
-//   forward, otherwise (bshd_fwd_kernel): grid (q-tile, head, batch). A
-//             block stages one head's K and V (in the input type) and a
-//             32-row tile of Q (in f32), computes a 32 x S f32 score tile,
-//             the masked softmax with one warp per row, and P.V, all with
-//             f32 FMA.
 //   backward, otherwise (bshd_bwd_kernel): one block per (batch, head). K
 //             and V stay in shared memory; one f32 [S, D] accumulator is
 //             reused by two sweeps over 16-row query tiles. Sweep 1
@@ -50,14 +48,41 @@
 //             per tile and sums dK = dS^T Q. Two sweeps (one extra Q K^T)
 //             keep the f32 case at 197 KB of shared memory where one
 //             accumulator for each of dK and dV would need 251 KB.
-// The tensor-core kernels need a head dim that is a multiple of 16 and at
-// most 288 keys (ViT-L/14's 272), and fit shared memory up to ViT-B's 208
-// keys in the backward, 288 in the forward.
+//   key-tiled, f32 FMA like the kernel above: every forward the tensor
+//             cores do not take (f32 inputs; bf16 past 288 keys), and the
+//             backward where neither of the above fits shared memory
+//             (ViT-L/14@336px's 592 keys in every dtype, ViT-L/14's 272 in
+//             f32):
+//     forward (bshd_fwd_tiled_kernel): grid (q-tile, head, batch). K and V
+//             stream through shared memory 64 keys at a time; an online
+//             softmax keeps a running max m and sum l per query row and
+//             rescales the f32 accumulator at each tile. The probabilities
+//             exp(s - m) are rounded to the input type before P.V, against
+//             the running max (the Pallas kernel rounds exp(s - m) / l
+//             against the final one): the two differ by one rounding of each
+//             P, within the forward's bound in chip_smoke.py.
+//     backward, phase A (bshd_bwd_tiled_rows_kernel): grid (q-tile, head,
+//             batch). A first sweep over key tiles gives each query row's m
+//             and l; a second gives P, rs = rowsum(dP * P) and
+//             dQ = scale * (sum_j P dP k_j - rs * sum_j P k_j), which is
+//             dS K without a third sweep. m, l and rs go to a scratch buffer.
+//     backward, phase B (bshd_bwd_tiled_keys_kernel): grid (k-tile, head,
+//             batch): per 32-key tile over all 32-row query tiles, P and dS
+//             from the statistics, dV += P^T dO and dK += dS^T Q.
+// The route is chosen per geometry (ttl_bshd_attention_route): tensor cores
+// where they fit; then, forward, the key-tiled kernel, and backward the
+// whole-head FMA kernel where it fits, else the key-tiled pair. So ViT-B/16's
+// 208 keys in bf16 keep the tensor-core kernels. Where both FMA routes fit,
+// the key-tiled forward was the faster and the whole-head backward the
+// faster (PERF.md). The tensor-core kernels need a head dim that is a
+// multiple of 16 and at most 288 keys (ViT-L/14's 272), and fit shared
+// memory up to ViT-B's 208 keys in the backward, 288 in the forward.
 // Every staged row past S is zero-filled, so no uninitialised memory is read.
 //
 // C interface (loaded with ctypes): ttl_bshd_attention_fwd,
-// ttl_bshd_attention_bwd and ttl_cuda_error_string. The launches go to the
-// caller's stream; each function returns the cudaError_t of the launch.
+// ttl_bshd_attention_bwd, ttl_bshd_attention_route and
+// ttl_cuda_error_string. The launches go to the caller's stream; each
+// launching function returns the cudaError_t of its launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,7 +94,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kFwdRows = 32;      // query rows per forward block
 constexpr int kBwdRows = 16;      // query rows per backward tile
 constexpr int kDotCols = 4;       // keys per thread and pass in row_dots
 constexpr float kMaskValue = -1e9f;
@@ -170,9 +194,8 @@ __device__ void row_dots(const float* a, const T* b, float* out, int ldo,
   }
 }
 
-// In place over rows of s: masked, scaled softmax, one warp per row.
-// ROUND rounds each probability to T (the forward's P.astype(v.dtype)).
-template <int ROWS, typename T, bool ROUND>
+// In place over rows of s: masked, scaled softmax in f32, one warp per row.
+template <int ROWS>
 __device__ void softmax_rows(float* s, int lds, const Geometry& g) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < ROWS; r += kThreads / 32) {
@@ -191,10 +214,7 @@ __device__ void softmax_rows(float* s, int lds, const Geometry& g) {
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < g.S; j += 32) {
-      const float p = row[j] / sum;
-      row[j] = ROUND ? to_f32(from_f32<T>(p)) : p;
-    }
+    for (int j = lane; j < g.S; j += 32) row[j] /= sum;
   }
 }
 
@@ -265,49 +285,12 @@ __device__ void store_acc(T* __restrict__ out, const float* acc,
 
 __device__ __forceinline__ int odd_ld(int s) { return s | 1; }
 
-template <typename T, int D> size_t fwd_smem_bytes(int S) {
-  const size_t slab = align16(sizeof(T) * S * slab_ld<T, D>());
-  const size_t q = align16(sizeof(float) * kFwdRows * (D + 1));
-  const size_t s = sizeof(float) * kFwdRows * (S | 1);
-  return 2 * slab + q + s;
-}
-
 template <typename T, int D> size_t bwd_smem_bytes(int S) {
   const size_t slab = align16(sizeof(T) * S * slab_ld<T, D>());
   const size_t acc = align16(sizeof(float) * S * (D + 1));
   const size_t tile = align16(sizeof(float) * kBwdRows * (D + 1));
   const size_t s = align16(sizeof(float) * kBwdRows * (S | 1));
   return 2 * slab + acc + 2 * tile + 2 * s;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-bshd_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o, Geometry g) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const size_t slab = align16(sizeof(T) * g.S * slab_ld<T, D>());
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = reinterpret_cast<T*>(smem + slab);
-  float* qs = reinterpret_cast<float*>(smem + 2 * slab);
-  float* ss = qs + align16(sizeof(float) * kFwdRows * (D + 1)) / sizeof(float);
-  const int lds = odd_ld(g.S);
-
-  const int row0 = blockIdx.x * kFwdRows;
-  const size_t base = (size_t)blockIdx.z * g.S * g.HD + (size_t)blockIdx.y * D;
-  load_slab<T, D>(ks, k + base, g);
-  load_slab<T, D>(vs, v + base, g);
-  load_tile<kFwdRows, T, D>(qs, q + base, row0, g);
-  __syncthreads();
-  row_dots<kFwdRows, T, D>(qs, ks, ss, lds, g.S);
-  __syncthreads();
-  softmax_rows<kFwdRows, T, true>(ss, lds, g);
-  __syncthreads();
-  T* ob = o + base;
-  rows_times_slab<kFwdRows, T, D>(ss, lds, vs, g.S,
-                                  [&](int r, int d, float val) {
-    const int row = row0 + r;
-    if (row < g.S) ob[(size_t)row * g.HD + d] = from_f32<T>(val);
-  });
 }
 
 template <typename T, int D>
@@ -343,7 +326,7 @@ bshd_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     row_dots<kBwdRows, T, D>(qs, ks, ps, lds, g.S);
     __syncthreads();
-    softmax_rows<kBwdRows, T, false>(ps, lds, g);
+    softmax_rows<kBwdRows>(ps, lds, g);
     __syncthreads();
     accumulate_outer<kBwdRows, D>(ps, lds, dos, acc, g.S);
     __syncthreads();
@@ -362,7 +345,7 @@ bshd_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     row_dots<kBwdRows, T, D>(qs, ks, ps, lds, g.S);
     row_dots<kBwdRows, T, D>(dos, vs, dss, lds, g.S);
     __syncthreads();
-    softmax_rows<kBwdRows, T, false>(ps, lds, g);
+    softmax_rows<kBwdRows>(ps, lds, g);
     __syncthreads();
     softmax_grad_rows<kBwdRows>(ps, dss, lds, g);
     __syncthreads();
@@ -379,7 +362,7 @@ bshd_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ---------------------------------------------------------------------------
 // Tensor-core forward for bf16 inputs (WMMA, 16x16x16 bf16 -> f32). Same
-// numerics as bshd_fwd_kernel: bf16 products are exact in f32, the scores
+// numerics as the Pallas forward: bf16 products are exact in f32, the scores
 // and the softmax stay f32, P is rounded to bf16 before P.V.
 //
 // One block per (batch, head) with kTcWarps warps; K and V are staged once
@@ -854,18 +837,341 @@ int launch_bwd_tc(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Key-tiled kernels (f32 FMA, any S): the forward for every geometry the
+// tensor cores do not take; the backward for geometries where a whole
+// head's K and V with the score rows beside them do not fit shared memory.
+
+constexpr int kTiledRows = 32;     // query rows per block and per tile
+constexpr int kTiledKeys = 64;     // keys per forward / phase A stage
+constexpr int kTiledKeyRows = 32;  // keys per phase B block
+constexpr int kTiledLds = kTiledKeys | 1;
+
+// dst[j][d] = head slice of rows j0 + j, j < n, of a [S, H*D] slab.
 template <typename T, int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, int B,
-               int H, const Geometry& g, cudaStream_t stream) {
-  if (sizeof(T) == 2 && fwd_tc_fits<D>(g.S))
-    return launch_fwd_tc<D>(q, k, v, o, B, H, g, stream);
-  const size_t smem = fwd_smem_bytes<T, D>(g.S);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = bshd_fwd_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
+__device__ void load_rows(T* dst, const T* __restrict__ src, int j0, int n,
+                          const Geometry& g) {
+  constexpr int ld = slab_ld<T, D>();
+  for (int e = threadIdx.x; e < n * D; e += kThreads) {
+    const int j = e / D, d = e % D;
+    dst[j * ld + d] = src[(size_t)(j0 + j) * g.HD + d];
+  }
+}
+
+// One online-softmax step over a tile of n keys starting at key j0, one
+// warp per row of s (in place): masked, scaled scores; the running max m
+// and sum l per row (alpha = exp(m_old - m_new) rescales what came before);
+// P_j = exp(x_j - m_new), rounded to T when ROUND. With STORE false only
+// the statistics are kept.
+template <int ROWS, typename T, bool ROUND, bool STORE>
+__device__ void online_softmax_tile(float* s, int lds, int j0, int n,
+                                    float* m_run, float* l_run, float* alpha,
+                                    const Geometry& g) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < ROWS; r += kThreads / 32) {
+    float* row = s + r * lds;
+    float mx = -INFINITY;
+    for (int j = lane; j < n; j += 32) {
+      const float x = j0 + j < g.seq_len ? row[j] * g.scale : kMaskValue;
+      row[j] = x;
+      mx = fmaxf(mx, x);
+    }
+    mx = warp_max(mx);
+    const float m_old = m_run[r];
+    const float m_new = fmaxf(m_old, mx);
+    float sum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float e = expf(row[j] - m_new);
+      sum += e;
+      if (STORE) row[j] = ROUND ? to_f32(from_f32<T>(e)) : e;
+    }
+    sum = warp_sum(sum);
+    __syncwarp();
+    if (lane == 0) {
+      const float a = expf(m_old - m_new);  // 0 at the first tile
+      if (alpha != nullptr) alpha[r] = a;
+      l_run[r] = l_run[r] * a + sum;
+      m_run[r] = m_new;
+    }
+  }
+}
+
+struct TiledLayout {
+  size_t kv, tile, s, fwd, bwd;
+  template <typename T, int D>
+  __host__ __device__ static TiledLayout make() {
+    TiledLayout l;
+    l.kv = align16(sizeof(T) * kTiledKeys * slab_ld<T, D>());
+    l.tile = align16(sizeof(float) * kTiledRows * (D + 1));
+    l.s = align16(sizeof(float) * kTiledRows * kTiledLds);
+    const size_t stats = sizeof(float) * 3 * kTiledRows;
+    // forward: K, V stages; Q tile; scores; accumulator; m, l, alpha
+    l.fwd = 2 * l.kv + 2 * l.tile + l.s + stats;
+    // backward, both phases: K, V (stages, or 32-key tiles); Q, dO tiles;
+    // two score blocks; two accumulators; three row statistics
+    l.bwd = 2 * l.kv + 4 * l.tile + 2 * l.s + stats;
+    return l;
+  }
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+bshd_fwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      Geometry g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TiledLayout L = TiledLayout::make<T, D>();
+  unsigned char* p = smem;
+  T* ks = reinterpret_cast<T*>(p);          p += L.kv;
+  T* vs = reinterpret_cast<T*>(p);          p += L.kv;
+  float* qs = reinterpret_cast<float*>(p);  p += L.tile;
+  float* acc = reinterpret_cast<float*>(p); p += L.tile;
+  float* ss = reinterpret_cast<float*>(p);  p += L.s;
+  float* m_run = reinterpret_cast<float*>(p);
+  float* l_run = m_run + kTiledRows;
+  float* alpha = l_run + kTiledRows;
+
+  const int row0 = blockIdx.x * kTiledRows;
+  const size_t base = (size_t)blockIdx.z * g.S * g.HD + (size_t)blockIdx.y * D;
+  load_tile<kTiledRows, T, D>(qs, q + base, row0, g);
+  for (int e = threadIdx.x; e < kTiledRows * (D + 1); e += kThreads)
+    acc[e] = 0.f;
+  for (int r = threadIdx.x; r < kTiledRows; r += kThreads) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
+  }
+  for (int j0 = 0; j0 < g.S; j0 += kTiledKeys) {
+    const int n = min(kTiledKeys, g.S - j0);
+    load_rows<T, D>(ks, k + base, j0, n, g);
+    load_rows<T, D>(vs, v + base, j0, n, g);
+    __syncthreads();
+    row_dots<kTiledRows, T, D>(qs, ks, ss, kTiledLds, n);
+    __syncthreads();
+    online_softmax_tile<kTiledRows, T, true, true>(ss, kTiledLds, j0, n,
+                                                   m_run, l_run, alpha, g);
+    __syncthreads();
+    rows_times_slab<kTiledRows, T, D>(ss, kTiledLds, vs, n,
+                                      [&](int r, int d, float val) {
+      float* a = acc + r * (D + 1) + d;
+      *a = *a * alpha[r] + val;
+    });
+    __syncthreads();
+  }
+  T* ob = o + base;
+  for (int e = threadIdx.x; e < kTiledRows * D; e += kThreads) {
+    const int r = e / D, d = e % D, row = row0 + r;
+    if (row < g.S)
+      ob[(size_t)row * g.HD + d] =
+          from_f32<T>(acc[r * (D + 1) + d] / l_run[r]);
+  }
+}
+
+// Phase A: per 32-row query tile, the softmax statistics, rs and dQ.
+// stats: [3][B*H][S] f32 scratch (m, l, rs), read by phase B.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+bshd_bwd_tiled_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout, T* __restrict__ dq,
+                           float* __restrict__ stats, Geometry g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TiledLayout L = TiledLayout::make<T, D>();
+  unsigned char* p = smem;
+  T* ks = reinterpret_cast<T*>(p);            p += L.kv;
+  T* vs = reinterpret_cast<T*>(p);            p += L.kv;
+  float* qs = reinterpret_cast<float*>(p);    p += L.tile;
+  float* dos = reinterpret_cast<float*>(p);   p += L.tile;
+  float* acc_a = reinterpret_cast<float*>(p); p += L.tile;
+  float* acc_b = reinterpret_cast<float*>(p); p += L.tile;
+  float* ps = reinterpret_cast<float*>(p);    p += L.s;
+  float* gs = reinterpret_cast<float*>(p);    p += L.s;
+  float* m_run = reinterpret_cast<float*>(p);
+  float* l_run = m_run + kTiledRows;
+  float* rs = l_run + kTiledRows;
+
+  const int row0 = blockIdx.x * kTiledRows;
+  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const size_t plane = (size_t)gridDim.z * gridDim.y * g.S;
+  const size_t base = (size_t)blockIdx.z * g.S * g.HD + (size_t)blockIdx.y * D;
+  load_tile<kTiledRows, T, D>(qs, q + base, row0, g);
+  load_tile<kTiledRows, T, D>(dos, dout + base, row0, g);
+  for (int e = threadIdx.x; e < kTiledRows * (D + 1); e += kThreads) {
+    acc_a[e] = 0.f;
+    acc_b[e] = 0.f;
+  }
+  for (int r = threadIdx.x; r < kTiledRows; r += kThreads) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
+    rs[r] = 0.f;
+  }
+
+  // sweep 1: m and l of every row
+  for (int j0 = 0; j0 < g.S; j0 += kTiledKeys) {
+    const int n = min(kTiledKeys, g.S - j0);
+    load_rows<T, D>(ks, k + base, j0, n, g);
+    __syncthreads();
+    row_dots<kTiledRows, T, D>(qs, ks, ps, kTiledLds, n);
+    __syncthreads();
+    online_softmax_tile<kTiledRows, T, false, false>(
+        ps, kTiledLds, j0, n, m_run, l_run, nullptr, g);
+    __syncthreads();
+  }
+
+  // sweep 2: P = exp(x - m) / l and G = P * dP per key; rs += rowsum(G),
+  // A += G K, B += P K
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int j0 = 0; j0 < g.S; j0 += kTiledKeys) {
+    const int n = min(kTiledKeys, g.S - j0);
+    load_rows<T, D>(ks, k + base, j0, n, g);
+    load_rows<T, D>(vs, v + base, j0, n, g);
+    __syncthreads();
+    row_dots<kTiledRows, T, D>(qs, ks, ps, kTiledLds, n);
+    row_dots<kTiledRows, T, D>(dos, vs, gs, kTiledLds, n);
+    __syncthreads();
+    for (int r = warp; r < kTiledRows; r += kThreads / 32) {
+      float* pr = ps + r * kTiledLds;
+      float* gr = gs + r * kTiledLds;
+      float part = 0.f;
+      for (int j = lane; j < n; j += 32) {
+        const float pj = j0 + j < g.seq_len
+                             ? expf(pr[j] * g.scale - m_run[r]) / l_run[r]
+                             : 0.f;
+        const float gj = pj * gr[j];
+        pr[j] = pj;
+        gr[j] = gj;
+        part += gj;
+      }
+      part = warp_sum(part);
+      if (lane == 0) rs[r] += part;
+    }
+    __syncthreads();
+    rows_times_slab<kTiledRows, T, D>(gs, kTiledLds, ks, n,
+                                      [&](int r, int d, float val) {
+      acc_a[r * (D + 1) + d] += val;
+    });
+    rows_times_slab<kTiledRows, T, D>(ps, kTiledLds, ks, n,
+                                      [&](int r, int d, float val) {
+      acc_b[r * (D + 1) + d] += val;
+    });
+    __syncthreads();
+  }
+
+  T* dqb = dq + base;
+  for (int e = threadIdx.x; e < kTiledRows * D; e += kThreads) {
+    const int r = e / D, d = e % D, row = row0 + r;
+    if (row < g.S)
+      dqb[(size_t)row * g.HD + d] = from_f32<T>(
+          g.scale * (acc_a[r * (D + 1) + d] - rs[r] * acc_b[r * (D + 1) + d]));
+  }
+  for (int r = threadIdx.x; r < kTiledRows; r += kThreads) {
+    const int row = row0 + r;
+    if (row < g.S) {
+      const size_t i = bh * g.S + row;
+      stats[i] = m_run[r];
+      stats[plane + i] = l_run[r];
+      stats[2 * plane + i] = rs[r];
+    }
+  }
+}
+
+// Phase B: per 32-key tile, dK and dV over all query tiles.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+bshd_bwd_tiled_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const T* __restrict__ dout, T* __restrict__ dk,
+                           T* __restrict__ dv,
+                           const float* __restrict__ stats, Geometry g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int ldb = kTiledKeyRows + 1;  // row stride of the P, dS blocks
+  const TiledLayout L = TiledLayout::make<T, D>();
+  unsigned char* p = smem;
+  T* ks = reinterpret_cast<T*>(p);             p += L.kv;
+  T* vs = reinterpret_cast<T*>(p);             p += L.kv;
+  float* qs = reinterpret_cast<float*>(p);     p += L.tile;
+  float* dos = reinterpret_cast<float*>(p);    p += L.tile;
+  float* acc_dk = reinterpret_cast<float*>(p); p += L.tile;
+  float* acc_dv = reinterpret_cast<float*>(p); p += L.tile;
+  float* ps = reinterpret_cast<float*>(p);     p += L.s;
+  float* dss = reinterpret_cast<float*>(p);    p += L.s;
+  float* st_m = reinterpret_cast<float*>(p);
+  float* st_l = st_m + kTiledRows;
+  float* st_rs = st_l + kTiledRows;
+
+  const int k0 = blockIdx.x * kTiledKeyRows;
+  const int nk = min(kTiledKeyRows, g.S - k0);
+  const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const size_t plane = (size_t)gridDim.z * gridDim.y * g.S;
+  const size_t base = (size_t)blockIdx.z * g.S * g.HD + (size_t)blockIdx.y * D;
+  load_rows<T, D>(ks, k + base, k0, nk, g);
+  load_rows<T, D>(vs, v + base, k0, nk, g);
+  for (int e = threadIdx.x; e < kTiledKeyRows * (D + 1); e += kThreads) {
+    acc_dk[e] = 0.f;
+    acc_dv[e] = 0.f;
+  }
+  for (int row0 = 0; row0 < g.S; row0 += kTiledRows) {
+    load_tile<kTiledRows, T, D>(qs, q + base, row0, g);
+    load_tile<kTiledRows, T, D>(dos, dout + base, row0, g);
+    for (int r = threadIdx.x; r < kTiledRows; r += kThreads) {
+      const int row = row0 + r < g.S ? row0 + r : 0;
+      const size_t i = bh * g.S + row;
+      st_m[r] = stats[i];
+      st_l[r] = stats[plane + i];
+      st_rs[r] = stats[2 * plane + i];
+    }
+    __syncthreads();
+    row_dots<kTiledRows, T, D>(qs, ks, ps, ldb, nk);
+    row_dots<kTiledRows, T, D>(dos, vs, dss, ldb, nk);
+    __syncthreads();
+    for (int e = threadIdx.x; e < kTiledRows * nk; e += kThreads) {
+      const int r = e / nk, j = e % nk;
+      float pv = 0.f, ds = 0.f;
+      if (row0 + r < g.S && k0 + j < g.seq_len) {
+        pv = expf(ps[r * ldb + j] * g.scale - st_m[r]) / st_l[r];
+        ds = pv * (dss[r * ldb + j] - st_rs[r]) * g.scale;
+      }
+      ps[r * ldb + j] = pv;
+      dss[r * ldb + j] = ds;
+    }
+    __syncthreads();
+    accumulate_outer<kTiledRows, D>(ps, ldb, dos, acc_dv, nk);
+    accumulate_outer<kTiledRows, D>(dss, ldb, qs, acc_dk, nk);
+    __syncthreads();
+  }
+  for (int e = threadIdx.x; e < nk * D; e += kThreads) {
+    const int j = e / D, d = e % D;
+    const size_t off = base + (size_t)(k0 + j) * g.HD + d;
+    dk[off] = from_f32<T>(acc_dk[j * (D + 1) + d]);
+    dv[off] = from_f32<T>(acc_dv[j * (D + 1) + d]);
+  }
+}
+
+// Routes, in the order they are tried.
+enum Route { kRouteTensorCore = 0, kRouteWholeHead = 1, kRouteKeyTiled = 2 };
+
+template <typename T, int D> int fwd_route(int S) {
+  if (sizeof(T) == 2 && fwd_tc_fits<D>(S)) return kRouteTensorCore;
+  return kRouteKeyTiled;
+}
+
+template <typename T, int D> int bwd_route(int S) {
+  if (sizeof(T) == 2 && bwd_tc_fits<D>(S)) return kRouteTensorCore;
+  if (bwd_smem_bytes<T, D>(S) <= kMaxSmem) return kRouteWholeHead;
+  return kRouteKeyTiled;
+}
+
+template <typename Kernel> int set_smem(Kernel kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((g.S + kFwdRows - 1) / kFwdRows, H, B);
+}
+
+template <typename T, int D>
+int launch_fwd_tiled(const void* q, const void* k, const void* v, void* o,
+                     int B, int H, const Geometry& g, cudaStream_t stream) {
+  const size_t smem = TiledLayout::make<T, D>().fwd;
+  auto kernel = bshd_fwd_tiled_kernel<T, D>;
+  if (int err = set_smem(kernel, smem)) return err;
+  const dim3 grid((g.S + kTiledRows - 1) / kTiledRows, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), g);
@@ -873,13 +1179,49 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 template <typename T, int D>
+int launch_bwd_tiled(const void* q, const void* k, const void* v,
+                     const void* dout, void* dq, void* dk, void* dv,
+                     void* stats, int B, int H, const Geometry& g,
+                     cudaStream_t stream) {
+  const size_t smem = TiledLayout::make<T, D>().bwd;
+  auto rows_kernel = bshd_bwd_tiled_rows_kernel<T, D>;
+  auto keys_kernel = bshd_bwd_tiled_keys_kernel<T, D>;
+  if (int err = set_smem(rows_kernel, smem)) return err;
+  if (int err = set_smem(keys_kernel, smem)) return err;
+  rows_kernel<<<dim3((g.S + kTiledRows - 1) / kTiledRows, H, B), kThreads,
+                smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<T*>(dq), static_cast<float*>(stats), g);
+  if (cudaError_t err = cudaGetLastError()) return (int)err;
+  keys_kernel<<<dim3((g.S + kTiledKeyRows - 1) / kTiledKeyRows, H, B),
+                kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<const float*>(stats), g);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, int B,
+               int H, const Geometry& g, cudaStream_t stream) {
+  if (fwd_route<T, D>(g.S) == kRouteTensorCore)
+    return launch_fwd_tc<D>(q, k, v, o, B, H, g, stream);
+  return launch_fwd_tiled<T, D>(q, k, v, o, B, H, g, stream);
+}
+
+template <typename T, int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
-               void* dq, void* dk, void* dv, int B, int H, const Geometry& g,
-               cudaStream_t stream) {
-  if (sizeof(T) == 2 && bwd_tc_fits<D>(g.S))
+               void* dq, void* dk, void* dv, void* stats, int B, int H,
+               const Geometry& g, cudaStream_t stream) {
+  const int route = bwd_route<T, D>(g.S);
+  if (route == kRouteTensorCore)
     return launch_bwd_tc<D>(q, k, v, dout, dq, dk, dv, B, H, g, stream);
+  if (route == kRouteKeyTiled)
+    return launch_bwd_tiled<T, D>(q, k, v, dout, dq, dk, dv, stats, B, H, g,
+                                  stream);
   const size_t smem = bwd_smem_bytes<T, D>(g.S);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   auto kernel = bshd_bwd_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -905,13 +1247,25 @@ int fwd_for_type(const void* q, const void* k, const void* v, void* o, int B,
 
 template <typename T>
 int bwd_for_type(const void* q, const void* k, const void* v,
-                 const void* dout, void* dq, void* dk, void* dv, int B, int H,
-                 int D, const Geometry& g, cudaStream_t st) {
+                 const void* dout, void* dq, void* dk, void* dv, void* stats,
+                 int B, int H, int D, const Geometry& g, cudaStream_t st) {
   switch (D) {
-    case 16: return launch_bwd<T, 16>(q, k, v, dout, dq, dk, dv, B, H, g, st);
-    case 32: return launch_bwd<T, 32>(q, k, v, dout, dq, dk, dv, B, H, g, st);
-    case 64: return launch_bwd<T, 64>(q, k, v, dout, dq, dk, dv, B, H, g, st);
+    case 16:
+      return launch_bwd<T, 16>(q, k, v, dout, dq, dk, dv, stats, B, H, g, st);
+    case 32:
+      return launch_bwd<T, 32>(q, k, v, dout, dq, dk, dv, stats, B, H, g, st);
+    case 64:
+      return launch_bwd<T, 64>(q, k, v, dout, dq, dk, dv, stats, B, H, g, st);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T> int route_for_type(int backward, int S, int D) {
+  switch (D) {
+    case 16: return backward ? bwd_route<T, 16>(S) : fwd_route<T, 16>(S);
+    case 32: return backward ? bwd_route<T, 32>(S) : fwd_route<T, 32>(S);
+    case 64: return backward ? bwd_route<T, 64>(S) : fwd_route<T, 64>(S);
+    default: return -1;
   }
 }
 
@@ -930,18 +1284,29 @@ int ttl_bshd_attention_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// stats: scratch of 3 * B * H * S floats, written and read only by the
+// key-tiled route.
 int ttl_bshd_attention_bwd(const void* q, const void* k, const void* v,
                            const void* dout, void* dq, void* dk, void* dv,
-                           int dtype, int B, int S, int H, int D, int seq_len,
-                           float scale, void* stream) {
+                           void* stats, int dtype, int B, int S, int H, int D,
+                           int seq_len, float scale, void* stream) {
   const Geometry g{S, H * D, seq_len, scale};
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return bwd_for_type<float>(q, k, v, dout, dq, dk, dv, B, H, D, g, st);
+    return bwd_for_type<float>(q, k, v, dout, dq, dk, dv, stats, B, H, D, g,
+                               st);
   if (dtype == 1)
-    return bwd_for_type<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, B, H, D, g,
-                                       st);
+    return bwd_for_type<__nv_bfloat16>(q, k, v, dout, dq, dk, dv, stats, B,
+                                       H, D, g, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The route a geometry takes: 0 tensor cores, 1 whole-head FMA (backward
+// only), 2 key-tiled FMA; -1 for a dtype or head dim the kernels do not take.
+int ttl_bshd_attention_route(int backward, int dtype, int S, int D) {
+  if (dtype == 0) return route_for_type<float>(backward, S, D);
+  if (dtype == 1) return route_for_type<__nv_bfloat16>(backward, S, D);
+  return -1;
 }
 
 const char* ttl_cuda_error_string(int code) {

@@ -13,6 +13,10 @@ in f32. The vision tower pads its tokens once per forward to a multiple of
 bshd kernel pair, which masks the pad keys; pad rows ride the residual
 stream and nothing reads them. The text tower is causal and stays on the
 plain einsum-numerics attention, as in the JAX package.
+
+With `--prefix_quant int8` the vision parameters carry an int8 copy of the
+frozen prefix under `prefix_q` (`ops/quant.py`), and `vision_prefix` runs
+those layers through `encoder_layer_q`, whose six linears are K5.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..ops.attention import attention_bshd, causal_attention_plain
+from ..ops.quant import linear_q
 
 Params = Dict[str, Any]
 
@@ -135,6 +140,21 @@ def encoder_layer(p: Params, x: torch.Tensor, *, heads: int, eps: float,
     return x + linear(quick_gelu(linear(h, p["mlp"]["fc1"])), p["mlp"]["fc2"])
 
 
+def encoder_layer_q(pq: Params, x: torch.Tensor, *, heads: int, eps: float,
+                    seq_len: Optional[int] = None) -> torch.Tensor:
+    """encoder_layer with int8 linears, for frozen vision layers under
+    no_grad: layernorms and attention unchanged, no LoRA."""
+    h = layer_norm(x, pq["ln1"], eps)
+    q = linear_q(h, pq["attn"]["q"])
+    k = linear_q(h, pq["attn"]["k"])
+    v = linear_q(h, pq["attn"]["v"])
+    a = attention_bshd(q, k, v, heads, seq_len)
+    x = x + linear_q(a, pq["attn"]["o"])
+    h = layer_norm(x, pq["ln2"], eps)
+    return x + linear_q(quick_gelu(linear_q(h, pq["mlp"]["fc1"])),
+                        pq["mlp"]["fc2"])
+
+
 def _run_layers(stacked: Params, x: torch.Tensor, lo: int, hi: int, *,
                 heads: int, eps: float, causal: bool,
                 seq_len: Optional[int] = None) -> torch.Tensor:
@@ -160,7 +180,10 @@ def pad_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, Optional[int]]:
 
 def vision_prefix(p: Params, images: torch.Tensor, cfg: VisionConfig, *,
                   upto: int, compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Patchify + embed + frozen layers [0, upto) -> hidden [B, S_pad, D]."""
+    """Patchify + embed + frozen layers [0, upto) -> hidden [B, S_pad, D].
+    With an int8 copy under p["prefix_q"], its first min(upto, n_q) layers
+    run int8 and the fp layers finish the range (none when the whole tower
+    is quantised and its fp stack dropped)."""
     b = images.shape[0]
     g, pt = cfg.grid, cfg.patch
     x = images.to(compute_dtype)
@@ -171,7 +194,14 @@ def vision_prefix(p: Params, images: torch.Tensor, cfg: VisionConfig, *,
     x = torch.cat([cls, x], dim=1) + p["pos_embed"].to(compute_dtype)
     x = layer_norm(x, p["ln_pre"], cfg.ln_eps)
     x, seq_len = pad_tokens(x)
-    return _run_layers(p["layers"], x, 0, upto, heads=cfg.heads,
+    nq = 0
+    qp = p.get("prefix_q")
+    if qp is not None:
+        nq = min(upto, qp["ln1"]["scale"].shape[0])
+        for i in range(nq):
+            x = encoder_layer_q(layer_at(qp, i), x, heads=cfg.heads,
+                                eps=cfg.ln_eps, seq_len=seq_len)
+    return _run_layers(p["layers"], x, nq, upto, heads=cfg.heads,
                        eps=cfg.ln_eps, causal=False, seq_len=seq_len)
 
 
@@ -215,6 +245,16 @@ def vision_features(p: Params, images: torch.Tensor, cfg: VisionConfig, *,
     return vision_from_hidden(p, hidden.detach(), cfg, adapters=adapters,
                               adapter_window=adapter_window,
                               lora_scale=lora_scale)
+
+
+def encode_image(p: Params, images: torch.Tensor, vision_cfg, *,
+                 compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Backbone dispatcher, frozen features: the ViT tower; the ResNet
+    towers raise until they are ported."""
+    if not isinstance(vision_cfg, VisionConfig):
+        raise NotImplementedError("the ResNet vision towers are not ported "
+                                  "yet (ROADMAP Queue 1, item 14)")
+    return vision_features(p, images, vision_cfg, compute_dtype=compute_dtype)
 
 
 def text_features(p: Params, tokens: torch.Tensor, cfg: TextConfig, *,

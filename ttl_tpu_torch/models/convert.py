@@ -28,15 +28,28 @@ def tensor_from_numpy(a, device, dtype: Optional[torch.dtype] = None
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+def _prefix_q_from_numpy(tree: Any, device) -> Any:
+    """The int8 prefix copy (`ops/quant.py`): `wq` stays int8, every other
+    leaf (scales, biases, layernorms) is float32; zero-length stacks stay
+    zero-length."""
+    if isinstance(tree, dict):
+        return {k: _prefix_q_from_numpy(v, device) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return tensor_from_numpy(a, device, torch.int8 if a.dtype == np.int8
+                             else torch.float32)
+
+
 def params_from_numpy(tree: Any, device, param_dtype: Optional[torch.dtype]
                       = None) -> Any:
     """JAX parameter pytree (numpy leaves) -> the port's parameter dict.
 
     param_dtype None keeps every leaf's own dtype. Otherwise leaves with two
     or more axes become param_dtype and the rest float32, the rule the JAX
-    runner applies to converted checkpoints."""
+    runner applies to converted checkpoints. The int8 prefix copy under
+    `prefix_q` keeps its own types either way."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, param_dtype)
+        return {k: (_prefix_q_from_numpy(v, device) if k == "prefix_q"
+                    else params_from_numpy(v, device, param_dtype))
                 for k, v in tree.items()}
     a = np.asarray(tree)
     if param_dtype is None:

@@ -136,16 +136,35 @@ def bshd_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = _check_kernel_args((q, k, v, do), heads, seq_len)
     b, s, _ = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    # softmax statistics (m, l, rowsum(dP*P)), read and written only by the
+    # key-tiled route
+    stats = None
+    if kernel_route(True, q.dtype, s, d) == "key-tiled FMA":
+        stats = torch.empty(3, b * heads * s, dtype=torch.float32,
+                            device=q.device)
     lib = _build.library()
     rc = lib.ttl_bshd_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if stats is None else stats.data_ptr(),
         _DTYPE_CODES[q.dtype], b, s, heads, d, seq_len, 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, f"bshd attention backward at S={s}, head dim {d}, "
                      f"{q.dtype}")
     attention_bshd.bwd_launches += 1
     return dq, dk, dv
+
+
+ROUTES = ("tensor cores", "whole-head FMA", "key-tiled FMA")
+
+
+def kernel_route(backward: bool, dtype: torch.dtype, s: int, d: int) -> str:
+    """The kernel route a geometry takes on the card (builds the library)."""
+    code = _build.library().ttl_bshd_attention_route(
+        int(backward), _DTYPE_CODES[dtype], s, d)
+    if code < 0:
+        raise ValueError(f"no bshd attention kernel for {dtype}, head dim {d}")
+    return ROUTES[code]
 
 
 class AttentionBSHD(torch.autograd.Function):

@@ -1,4 +1,5 @@
-"""View generation: 1 center view + (n-1) random-resized-crop/flip views.
+"""View generation: 1 center view + (n-1) random-resized-crop/flip views,
+and the single center view of zero-shot evaluation (`preprocess_center`).
 
 Counterpart of `ttl_tpu/ops/image.py` without AugMix, split in two:
 
@@ -149,6 +150,16 @@ def normalize(x: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(CLIP_MEAN, dtype=x.dtype, device=x.device)
     std = torch.tensor(CLIP_STD, dtype=x.dtype, device=x.device)
     return (x - mean[:, None, None]) / std[:, None, None]
+
+
+def preprocess_center(canvases: torch.Tensor, hs: torch.Tensor,
+                      ws: torch.Tensor, out_size: int = 224,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """The deterministic eval view of each canvas: uint8 [S, C, C, 3] with
+    true extents hs, ws [S] -> CLIP-normalized [S, 3, out, out]."""
+    boxes = center_box(hs.float(), ws.float())[:, None]
+    views = crop_resize(canvases.float(), boxes, out_size)[:, 0]
+    return normalize(torch.clamp(views / 255.0, 0.0, 1.0)).to(out_dtype)
 
 
 def render_views(canvases: torch.Tensor, hs: torch.Tensor, ws: torch.Tensor,

@@ -1,11 +1,14 @@
 """End-to-end evaluation on one device.
 
 Counterpart of `load_model`, `make_adapters0`, `evaluate_dataset` and `run`
-in `ttl_tpu/runner.py`, for the image-LoRA mode. Per dataset it builds the
-frozen text classifier once, streams samples through the JAX package's
-`SampleLoader`, and runs one fused step per batch of `sample_batch` samples:
-views rendered on the device, the episodic adaptation, the adapted
-clean-view logits, and top-1/top-5 counts on the device.
+in `ttl_tpu/runner.py`, for the image-LoRA mode and zero-shot
+(`--tta_steps 0`), with the single-template or the ensemble (`--ensemble`)
+classifier and an optional int8 frozen prefix (`--prefix_quant int8`). Per
+dataset it builds the frozen text classifier once, streams samples through
+the JAX package's `SampleLoader`, and runs one fused step per batch of
+`sample_batch` samples: views rendered on the device, the episodic
+adaptation and the adapted clean-view logits (or the center view's
+zero-shot logits), and top-1/top-5 counts on the device.
 
 The loader's prefetch thread makes each batch's random view draws and, for
 a CUDA device, copies the batch to the device from pinned memory on a
@@ -28,19 +31,27 @@ from ttl_tpu.data.registry import build_dataset
 from ttl_tpu.data.views import DEFAULT_CANVAS, SampleLoader
 from ttl_tpu.utils.meters import AverageMeter, ProgressMeter, Summary
 
-from .adapt.ttl import check_supported, compute_dtype, make_fused_ttl_fn
+from .adapt.ttl import (check_supported, compute_dtype, make_fused_ttl_fn,
+                        make_fused_zeroshot_fn)
 from .models.clip import init_clip_params
-from .models.prompts import build_text_classifier, prompt_tokens
+from .models.prompts import (build_ensemble_classifier, build_text_classifier,
+                             prompt_tokens)
 from .models.zoo import get_arch
 from .ops.image import draw_batch
 from .ops.lora import adapter_param_count, init_adapters
+from .ops.quant import attach_prefix_quant, quant_prefix_len
 from .parallel.eval import topk_counts
 
 
 def load_model(cfg: TTLConfig, device):
     """(clip_cfg, params) with random weights drawn from cfg.seed: no CLIP
-    checkpoint can be loaded yet (ROADMAP Queue 1, item 14)."""
+    checkpoint can be loaded yet (ROADMAP Queue 1, item 14). With
+    `--prefix_quant int8` the frozen vision layers get an int8 copy, and the
+    fp layer stack is dropped where the whole tower is quantised."""
     check_supported(cfg)
+    if cfg.prefix_quant not in ("none", "int8"):
+        raise ValueError(f"prefix_quant={cfg.prefix_quant!r}: expected "
+                         "'none' or 'int8'")
     clip_cfg = get_arch(cfg.arch)
     pdtype = (torch.bfloat16 if cfg.param_dtype == "bfloat16"
               else torch.float32)
@@ -48,6 +59,9 @@ def load_model(cfg: TTLConfig, device):
           "(accuracy will be chance level)", flush=True)
     params = init_clip_params(clip_cfg, torch.Generator().manual_seed(
         cfg.seed), device=device, param_dtype=pdtype)
+    if cfg.prefix_quant == "int8":
+        params = attach_prefix_quant(params, quant_prefix_len(cfg, clip_cfg),
+                                     drop_fp=True)
     return clip_cfg, params
 
 
@@ -74,7 +88,7 @@ class DeviceBatch(NamedTuple):
 
 def _make_upload(cfg: TTLConfig, device, batch_size: int):
     """The loader transform: SampleBatch -> DeviceBatch, run in the loader's
-    prefetch thread."""
+    prefetch thread. Zero-shot draws no random views."""
     copy_stream = (torch.cuda.Stream(device) if device.type == "cuda"
                    else None)
 
@@ -82,7 +96,8 @@ def _make_upload(cfg: TTLConfig, device, batch_size: int):
         host = DeviceBatch(
             torch.from_numpy(b.canvases), torch.from_numpy(b.heights),
             torch.from_numpy(b.widths),
-            draw_batch(cfg.seed, b.indices, cfg.batch_size),
+            (draw_batch(cfg.seed, b.indices, cfg.batch_size)
+             if cfg.tta_steps > 0 else {}),
             torch.from_numpy(b.labels.astype(np.int64)),
             torch.from_numpy(np.arange(batch_size) < batch_size - b.pad),
             None)
@@ -103,9 +118,15 @@ def _make_upload(cfg: TTLConfig, device, batch_size: int):
 
 def text_classifier(set_id: str, cfg: TTLConfig, clip_cfg, params, *,
                     device) -> torch.Tensor:
-    """The frozen [C, proj_dim] classifier of a set's class prompts."""
-    toks = prompt_tokens(resolve_classnames(set_id),
-                         cfg.ctx_init.replace("_", " "))
+    """The frozen [C, proj_dim] classifier of a set's class prompts: the
+    template ensemble with `--ensemble`, else one '<ctx_init> <class>.'
+    prompt per class."""
+    classnames = resolve_classnames(set_id)
+    if cfg.ensemble:
+        return build_ensemble_classifier(params["text"], classnames,
+                                         clip_cfg.text, device=device,
+                                         compute_dtype=compute_dtype(cfg))
+    toks = prompt_tokens(classnames, cfg.ctx_init.replace("_", " "))
     return build_text_classifier(params["text"], toks, clip_cfg.text,
                                  device=device,
                                  compute_dtype=compute_dtype(cfg))
@@ -115,6 +136,14 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
                      adapters0, *, device, dataset=None,
                      max_samples: Optional[int] = None) -> List[float]:
     """One dataset: returns [top1, top5] percentages."""
+    if cfg.ensemble and (cfg.cocoop or cfg.lora_encoder != "image"):
+        raise ValueError(
+            "--ensemble replaces the frozen single-template text classifier "
+            "and only applies when that classifier is consumed "
+            "(lora_encoder='image', no --cocoop); the requested mode "
+            f"(lora_encoder={cfg.lora_encoder!r}, cocoop={cfg.cocoop}) "
+            "builds its prompts elsewhere and would silently ignore the "
+            "ensemble table")
     device = torch.device(device)
     if dataset is None:
         dataset = build_dataset(set_id, cfg)
@@ -126,7 +155,18 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
         canvas=canvas, bucket_canvas=cfg.canvas == 0,
         max_samples=max_samples, workers=cfg.workers,
         transform=_make_upload(cfg, device, cfg.sample_batch))
-    step_fn = make_fused_ttl_fn(clip_cfg, cfg)
+    if cfg.tta_steps > 0:
+        adapt = make_fused_ttl_fn(clip_cfg, cfg)
+
+        def step_fn(b: DeviceBatch) -> torch.Tensor:
+            return adapt(params, text_cls, adapters0, b.canvases, b.hs, b.ws,
+                         b.draws).logits
+    else:
+        # zero-shot on the deterministic center view
+        zeroshot = make_fused_zeroshot_fn(clip_cfg, cfg)
+
+        def step_fn(b: DeviceBatch) -> torch.Tensor:
+            return zeroshot(params, text_cls, b.canvases, b.hs, b.ws)
 
     batch_time = AverageMeter("Time", ":6.3f", Summary.NONE)
     top1 = AverageMeter("Acc@1", ":6.2f", Summary.AVERAGE)
@@ -140,9 +180,7 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
             stream.wait_event(b.ready)
             for t in b.tensors():
                 t.record_stream(stream)
-        res = step_fn(params, text_cls, adapters0, b.canvases, b.hs, b.ws,
-                      b.draws)
-        return topk_counts(res.logits, b.labels, b.valid)
+        return topk_counts(step_fn(b), b.labels, b.valid)
 
     def drain(i, pending):
         c1, c5, n = pending.tolist()
