@@ -33,7 +33,30 @@ per source, side by side), then:
 10. card against CPU for one sample of the int8 main path and one of
    zero-shot (and of zero-shot without int8); the int8 effect on the card,
    int8 logits minus fp logits, must spread over the classes as the CPU's
-   does, so a card run that skipped the int8 layers fails.
+   does, so a card run that skipped the int8 layers fails;
+11. K3, the per_head attention forward and backward over [B, H, S, D],
+   against the plain version and autograd through it, at the vision shape
+   [512, 12, 197, 64] bf16 and the causal text shape [1600, 8, 32, 64] bf16
+   (and one f32 case each), with `scaled_dot_product_attention` on the same
+   tensors and mask timed beside it as a yardstick (no path uses it);
+12. K4, the heads attention, likewise;
+13. the K1/K2 yardstick: `scaled_dot_product_attention` forward and backward
+   at [512, 208, 768] bf16 with the 197-key mask;
+14. `--lora_encoder text` under TTL_FUSED_ATTENTION=per_head through
+   `runner.run`: both towers through K3 (36 forward and 3 backward launches
+   per batch, K1/K2/K4/K5 none);
+15. `--lora_encoder prompt` (TPT) under TTL_FUSED_ATTENTION=heads: K4, 60
+   forward and 12 backward launches per batch (every text layer
+   checkpointed), with the run's peak device memory;
+16. `deyo_selection=False` (TPT on LoRA) on the default route, a short run:
+   18 K1 and 3 K2 launches per batch;
+17. card against CPU for one sample of phases 14 and 15, the CPU on the
+   plain versions under the same route.
+
+Every kernel's line also carries `bound_ms`, the least time the card could
+take for the call (the larger of its bytes over 3.35 TB/s and its operations
+over the peak rate of their type), and `library_ms`, the time of the one
+PyTorch call that computes the same function, where there is one.
 
 Any failed phase raises, and the script exits non-zero without its result
 line. Without CUDA it exits non-zero at once. The second-to-last lines are a
@@ -42,7 +65,10 @@ is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -92,6 +118,38 @@ CARD_CPU_BOUND = 0.05
 # through the layers above them. A card run that skipped the int8 layers
 # has no effect at all (card_q == card_fp).
 EFFECT_SPREAD = (0.5, 2.0)
+# K3/K4 at the shapes the text-side paths give them: the vision tower's 512
+# views and the text tower's 8 samples x 200 class prompts of 32 tokens
+# (test set A's table after EOT truncation): (B, H, S, D, causal, dtype)
+BHSD_SHAPES = [(512, 12, 197, 64, False, torch.bfloat16),
+               (1600, 8, 32, 64, True, torch.bfloat16),
+               (64, 12, 197, 64, False, torch.float32),
+               (1600, 8, 32, 64, True, torch.float32)]
+# the card's published peaks (H100 SXM, dense, at 700 W): bytes/s of HBM and
+# operations/s by operand type
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+
+
+def bound(n_bytes: float, n_ops: float, dtype) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate of their type, whichever is larger."""
+    by_bytes = 1e3 * n_bytes / PEAK_BYTES
+    by_ops = 1e3 * n_ops / PEAK_OPS[dtype]
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def attention_bound(n_tensors: int, flops_per_pair: int, b, h, s, d, dtype,
+                    causal: bool = False) -> dict:
+    """Attention over B*H heads of S tokens: `n_tensors` tensors of B*H*S*D
+    elements move once (4 forward: q, k, v, o; 7 backward: q, k, v, do, dq,
+    dk, dv); each kept (query, key) pair costs `flops_per_pair` * D
+    operations (4 forward: two products; 10 backward: five)."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    return bound(n_tensors * b * h * s * d * itemsize,
+                 flops_per_pair * b * h * pairs * d, dtype)
 
 
 def log(*a):
@@ -137,7 +195,8 @@ def check_forward(fa, b, s, seq_len, heads, width, dtype, seed) -> dict:
     if not err <= bound:
         raise AssertionError(f"K1 disagrees with its plain version: {err}"
                              f" > {bound}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **attention_bound(4, 4, b, heads, s, width // heads, dtype)}
 
 
 def check_backward(fa, b, s, seq_len, heads, width, dtype, seed) -> dict:
@@ -164,7 +223,88 @@ def check_backward(fa, b, s, seq_len, heads, width, dtype, seed) -> dict:
     route = fa.kernel_route(True, dtype, s, width // heads)
     log(f"K2 [{b}, {s}, {width}] {dtype} ({route}): "
         f"kernel {ms:.4f} ms, plain (autograd backward) {plain_ms:.4f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            **attention_bound(7, 10, b, heads, s, width // heads, dtype)}
+
+
+def sdpa_ms(q, k, v, do, mask=None, causal: bool = False) -> tuple:
+    """(forward ms, backward ms) of `scaled_dot_product_attention` over
+    [B, H, S, D] tensors: the library call that computes what K1-K4
+    compute. A yardstick only: no path of the package calls it."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = median_ms(lambda: sdpa(q, k, v, attn_mask=mask, is_causal=causal))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = sdpa(*leaves, attn_mask=mask, is_causal=causal)
+    bwd = median_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                retain_graph=True))
+    return fwd, bwd
+
+
+def phase_bshd_yardstick() -> tuple:
+    """`scaled_dot_product_attention` at K1/K2's main-path shape, heads as
+    strided views of the [B, S, H*D] tensors, keys past 197 masked."""
+    q, k, v, do = (t.unflatten(-1, (HEADS, -1)).transpose(1, 2)
+                   for t in inputs(512, torch.bfloat16, 4, seed=13))
+    mask = (torch.arange(SEQ_PAD, device="cuda") < SEQ)[None, None, None]
+    fwd, bwd = sdpa_ms(q, k, v, do, mask=mask)
+    log(f"scaled_dot_product_attention [512, {SEQ_PAD}, {WIDTH}] bf16, "
+        f"{SEQ}-key mask: forward {fwd:.4f} ms, backward {bwd:.4f} ms")
+    return fwd, bwd
+
+
+def phase_bhsd(fa, route: str, label: str) -> dict:
+    """K3 (`route` per_head) or K4 (heads), forward and backward, against
+    the plain version and autograd through it at BHSD_SHAPES. Returns the
+    forward and the backward results at each shape."""
+    forward = getattr(fa, f"{route}_forward_cuda")
+    backward = getattr(fa, f"{route}_backward_cuda")
+    results = {}
+    for b, h, s, d, causal, dtype in BHSD_SHAPES:
+        g = torch.Generator().manual_seed(SEED + s)
+        q, k, v, do = (torch.randn(b, h, s, d, generator=g).to("cuda", dtype)
+                       for _ in range(4))
+        shape = f"[{b}, {h}, {s}, {d}] {dtype}, causal={causal}"
+        out = forward(q, k, v, causal)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref = fa.attention_bhsd_plain(*leaves, causal)
+        want = torch.autograd.grad(ref, leaves, do, retain_graph=True)
+        got = backward(q, k, v, do, causal)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        limit = FWD_BOUND[dtype] * max(1.0, ref.float().abs().max().item())
+        if not torch.isfinite(out).all() or not err <= limit:
+            raise AssertionError(f"{label} forward at {shape} disagrees with "
+                                 f"its plain version: {err} > {limit}")
+        worst = 0.0
+        for name, gk, w in zip(("dq", "dk", "dv"), got, want):
+            e = (gk.float() - w.float()).abs().max().item()
+            lim = BWD_BOUND_REL[dtype] * w.float().abs().max().item()
+            if not torch.isfinite(gk).all() or not e <= lim:
+                raise AssertionError(f"{label} backward {name} at {shape} "
+                                     f"disagrees with autograd through the "
+                                     f"plain version: {e} > {lim}")
+            worst = max(worst, e)
+        lib_fwd, lib_bwd = sdpa_ms(q, k, v, do, causal=causal)
+        fwd = {"max_abs_err": err,
+               "ms": median_ms(lambda: forward(q, k, v, causal)),
+               "plain_ms": median_ms(
+                   lambda: fa.attention_bhsd_plain(q, k, v, causal)),
+               **attention_bound(4, 4, b, h, s, d, dtype, causal),
+               "library_ms": lib_fwd}
+        bwd = {"max_abs_err": worst,
+               "ms": median_ms(lambda: backward(q, k, v, do, causal)),
+               "plain_ms": median_ms(lambda: torch.autograd.grad(
+                   ref, leaves, do, retain_graph=True)),
+               **attention_bound(7, 10, b, h, s, d, dtype, causal),
+               "library_ms": lib_bwd}
+        for kind, r in (("forward", fwd), ("backward", bwd)):
+            log(f"{label} {kind} {shape}: max_abs_err {r['max_abs_err']:.3e},"
+                f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"scaled_dot_product_attention {r['library_ms']:.4f} ms")
+        results[shape] = {"fwd": fwd, "bwd": bwd}
+        del q, k, v, do, out, ref, want, got, leaves
+    return results
 
 
 def phase_forward(fa) -> dict:
@@ -230,16 +370,21 @@ def phase_k5(tq) -> dict:
             f"{dtype} linear {linear_ms:.4f} ms")
         if err != 0.0 or not torch.equal(got, want):
             raise AssertionError(f"K5 differs from linear_q_plain: {err}")
-        results[(k, n, dtype)] = {"max_abs_err": err, "ms": ms,
-                                  "plain_ms": plain_ms,
-                                  "linear_ms": linear_ms}
+        itemsize = x.element_size()
+        results[(k, n, dtype)] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "linear_ms": linear_ms,
+            # x read, wq (int8) with its f32 column scales and bias read,
+            # y written; 2*T*K*N int8 operations
+            **bound(K5_ROWS * (k + n) * itemsize + k * n + 8 * n,
+                    2 * K5_ROWS * k * n, torch.int8)}
         del x, got, want
     return results
 
 
 class SyntheticImages:
     """In-memory dataset of uint8 [H, W, 3] images of several sizes, with the
-    interface of the JAX package's ArrayDataset that the loader reads."""
+    interface of the package's ArrayDataset that the loader reads."""
 
     SIZES = [(224, 224), (375, 500), (480, 320), (160, 200)]
 
@@ -267,20 +412,20 @@ def config(*flags):
 
 
 class StepProbe:
-    """Stands in for the runner's step factory (make_fused_ttl_fn or
-    make_fused_zeroshot_fn). It wraps the step, records the host clock as
-    each step is dispatched and keeps each batch's logits for `check` after
-    the run: checking them inside would wait for the device and empty the
-    runner's pipeline. With `profile`, each step runs under torch.profiler
-    and is waited for."""
+    """Stands in for the runner's step factory (make_fused_ttl_fn,
+    make_fused_tpt_fn or make_fused_zeroshot_fn). It wraps the step, records
+    the host clock as each step is dispatched and keeps each batch's logits
+    for `check` after the run: checking them inside would wait for the device
+    and empty the runner's pipeline. With `profile`, each step runs under
+    torch.profiler and is waited for."""
 
     def __init__(self, make_step, profile: bool = False):
         self.make_step, self.profile = make_step, profile
         self.starts, self.logits = [], []
         self.table = self.busy_ms = None
 
-    def __call__(self, clip_cfg, cfg):
-        step_fn = self.make_step(clip_cfg, cfg)
+    def __call__(self, clip_cfg, cfg, **kw):
+        step_fn = self.make_step(clip_cfg, cfg, **kw)
 
         def step(*args):
             self.starts.append(time.perf_counter())
@@ -288,7 +433,10 @@ class StepProbe:
                 res = self._profiled(step_fn, args)
             else:
                 res = step_fn(*args)
-            self.logits.append(getattr(res, "logits", res))
+            # AdaptResult, (AdaptResult, ctx) from prompt tuning, or logits
+            out = res if hasattr(res, "logits") or torch.is_tensor(res) \
+                else res[0]
+            self.logits.append(getattr(out, "logits", out))
             return res
 
         return step
@@ -318,7 +466,32 @@ class StepProbe:
 
 def launch_counts(fa, tq) -> dict:
     return {"K1": fa.attention_bshd.fwd_launches,
-            "K2": fa.attention_bshd.bwd_launches, "K5": tq.linear_q.launches}
+            "K2": fa.attention_bshd.bwd_launches,
+            "K3 fwd": fa.attention_per_head.fwd_launches,
+            "K3 bwd": fa.attention_per_head.bwd_launches,
+            "K4 fwd": fa.attention_heads.fwd_launches,
+            "K4 bwd": fa.attention_heads.bwd_launches,
+            "K5": tq.linear_q.launches}
+
+
+@contextlib.contextmanager
+def attention_route(fa, value):
+    """Run with TTL_FUSED_ATTENTION set to `value` (None: unset), the way a
+    user chooses the route, and put the environment back after."""
+    before = os.environ.get("TTL_FUSED_ATTENTION")
+    if value is None:
+        os.environ.pop("TTL_FUSED_ATTENTION", None)
+    else:
+        os.environ["TTL_FUSED_ATTENTION"] = value
+    fa.reset_mode()
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("TTL_FUSED_ATTENTION", None)
+        else:
+            os.environ["TTL_FUSED_ATTENTION"] = before
+        fa.reset_mode()
 
 
 def reset_counts(fa, tq) -> None:
@@ -326,14 +499,22 @@ def reset_counts(fa, tq) -> None:
     tq.linear_q.launches = 0
 
 
-def phase_path(fa, tq, name: str, cfg, per_batch: dict) -> dict:
-    """Drive runner.run over 16 images and check the launches per batch,
-    then time 80 images in steady state and profile one batch."""
+def phase_path(fa, tq, name: str, cfg, per_batch: dict,
+               timed: bool = True) -> dict:
+    """Drive runner.run over 16 images and check the launches per batch
+    (kernels `per_batch` does not name must not launch); then, if `timed`,
+    time 80 images in steady state, with the run's peak device memory, and
+    profile one batch."""
     from ttl_tpu_torch import runner
 
-    attr = "make_fused_ttl_fn" if cfg.tta_steps > 0 else \
-        "make_fused_zeroshot_fn"
+    if cfg.tta_steps == 0:
+        attr = "make_fused_zeroshot_fn"
+    elif cfg.lora_encoder == "prompt":
+        attr = "make_fused_tpt_fn"
+    else:
+        attr = "make_fused_ttl_fn"
     original = getattr(runner, attr)
+    per_batch = {**dict.fromkeys(launch_counts(fa, tq), 0), **per_batch}
 
     def drive(probe, n_images):
         setattr(runner, attr, probe)
@@ -360,17 +541,22 @@ def phase_path(fa, tq, name: str, cfg, per_batch: dict) -> dict:
     top1, top5 = res["A"]
     if not (0.0 <= top1 <= 100.0 and 0.0 <= top5 <= 100.0):
         raise AssertionError(f"top-1/top-5 out of range: {res['A']}")
+    if not timed:
+        return {"launches": counts}
 
     # throughput: a longer run through the runner's own pipeline. Once
     # pipeline_depth + 1 steps are queued, each dispatch waits for an older
     # step's counts, so the dispatch clock ticks at the steady batch rate.
     timing = StepProbe(original)
+    torch.cuda.reset_peak_memory_stats()
     drive(timing, 80)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     pace = np.diff(timing.starts[cfg.pipeline_depth + 1:])
     rate = cfg.sample_batch / np.median(pace)
     log(f"{name} steady state: {len(pace)} batches of {cfg.sample_batch} "
         f"samples, s/batch {pace.tolist()}, median {np.median(pace):.4f} s, "
-        f"samples/s {rate:.3f} (pipeline_depth {cfg.pipeline_depth})")
+        f"samples/s {rate:.3f} (pipeline_depth {cfg.pipeline_depth}), peak "
+        f"device memory {peak_gb:.3f} GB")
 
     profiled = StepProbe(original, profile=True)
     drive(profiled, cfg.sample_batch)
@@ -378,38 +564,62 @@ def phase_path(fa, tq, name: str, cfg, per_batch: dict) -> dict:
     log(f"{name}, one batch under torch.profiler: device busy {busy_s:.4f} "
         f"s, {100 * busy_s / np.median(pace):.1f}% of the steady s/batch; "
         f"top CUDA kernels:\n{profiled.table}")
-    return {"launches": counts, "samples_per_s": rate}
+    return {"launches": counts, "samples_per_s": rate,
+            "busy_share": busy_s / np.median(pace), "peak_gb": peak_gb}
 
 
 def sample_step(cfg):
     """run_on(device) -> one fixed sample's logits through `cfg`'s path,
     with weights made on the card and moved to `device`."""
     from ttl_tpu_torch import runner
-    from ttl_tpu_torch.adapt.ttl import (make_fused_ttl_fn,
+    from ttl_tpu_torch.adapt.ttl import (make_fused_tpt_fn,
+                                         make_fused_ttl_fn,
                                          make_fused_zeroshot_fn)
+    from ttl_tpu_torch.data.classnames import resolve_classnames
     from ttl_tpu_torch.models.clip import tree_map
+    from ttl_tpu_torch.models.prompts import prompt_tokens
     from ttl_tpu_torch.ops.image import draw_batch
 
     dev = torch.device("cuda")
     clip_cfg, params = runner.load_model(cfg, dev)
-    text_cls = runner.text_classifier("A", cfg, clip_cfg, params, device=dev)
     rng = np.random.default_rng(SEED + 1)
     canvas = np.zeros((1, 256, 256, 3), np.uint8)
     canvas[0, :200, :256] = rng.integers(0, 256, (200, 256, 3),
                                          dtype=np.uint8)
     host = {"canvases": torch.from_numpy(canvas),
             "hs": torch.tensor([200]), "ws": torch.tensor([256])}
-    if cfg.tta_steps > 0:
-        adapters0 = runner.make_adapters0(cfg, clip_cfg, dev)
-        draws = draw_batch(cfg.seed, [3], cfg.batch_size)
-        fused = make_fused_ttl_fn(clip_cfg, cfg)
+    draws = draw_batch(cfg.seed, [3], cfg.batch_size)
+    if cfg.tta_steps > 0 and cfg.lora_encoder == "prompt":
+        pl_state = runner.prompt_learner("A", cfg, params)
+        tune = make_fused_tpt_fn(clip_cfg, cfg)
 
         def step(put):
-            return fused(tree_map(put, params), put(text_cls),
+            state = dataclasses.replace(pl_state, **{
+                f.name: put(getattr(pl_state, f.name))
+                for f in dataclasses.fields(pl_state)
+                if torch.is_tensor(getattr(pl_state, f.name))})
+            return tune(tree_map(put, params), state, put(host["canvases"]),
+                        put(host["hs"]), put(host["ws"]),
+                        tree_map(put, draws))[0].logits
+    elif cfg.tta_steps > 0:
+        adapters0 = runner.make_adapters0(cfg, clip_cfg, dev)
+        text_mode = cfg.lora_encoder == "text"
+        text_cls = None if text_mode else runner.text_classifier(
+            "A", cfg, clip_cfg, params, device=dev)
+        fused = make_fused_ttl_fn(
+            clip_cfg, cfg, tokens=prompt_tokens(
+                resolve_classnames("A"), cfg.ctx_init.replace("_", " "))
+            if text_mode else None)
+
+        def step(put):
+            return fused(tree_map(put, params),
+                         None if text_mode else put(text_cls),
                          tree_map(put, adapters0), put(host["canvases"]),
                          put(host["hs"]), put(host["ws"]),
                          tree_map(put, draws)).logits
     else:
+        text_cls = runner.text_classifier("A", cfg, clip_cfg, params,
+                                          device=dev)
         zeroshot = make_fused_zeroshot_fn(clip_cfg, cfg)
 
         def step(put):
@@ -513,21 +723,53 @@ def main() -> int:
     phase_int8_card_vs_cpu("zero-shot", zs_flags,
                            phase_card_vs_cpu(config(*zs_flags),
                                              "zero-shot without int8"))
-    log(f"steady samples/s: main path {main_path['samples_per_s']:.3f}, "
-        f"int8 main path {int8_path['samples_per_s']:.3f}, zero-shot "
-        f"{zero_shot['samples_per_s']:.3f}")
+    k3 = phase_bhsd(fa, "per_head", "K3")
+    k4 = phase_bhsd(fa, "heads", "K4")
+    lib_k1, lib_k2 = phase_bshd_yardstick()
+    text_cfg = config("--lora_encoder", "text")
+    prompt_cfg = config("--lora_encoder", "prompt")
+    with attention_route(fa, "per_head"):
+        text_path = phase_path(fa, tq, "text-LoRA, per_head route", text_cfg,
+                               {"K3 fwd": 36, "K3 bwd": 3})
+        phase_card_vs_cpu(text_cfg, "text-LoRA, per_head route")
+    with attention_route(fa, "heads"):
+        prompt_path = phase_path(fa, tq, "prompt tuning, heads route",
+                                 prompt_cfg, {"K4 fwd": 60, "K4 bwd": 12})
+        phase_card_vs_cpu(prompt_cfg, "prompt tuning, heads route")
+    tpt_lora = phase_path(
+        fa, tq, "TPT on LoRA",
+        config("--deyo_selection", "False"),
+        {"K1": 18, "K2": 3}, timed=False)
+    paths = {"main path": main_path, "int8 main path": int8_path,
+             "zero-shot": zero_shot, "text-LoRA (per_head)": text_path,
+             "prompt tuning (heads)": prompt_path}
+    log("steady samples/s, device busy share, peak device memory: "
+        + "; ".join(f"{name} {r['samples_per_s']:.3f}, "
+                    f"{100 * r['busy_share']:.1f}%, {r['peak_gb']:.3f} GB"
+                    for name, r in paths.items()))
+    paths["TPT on LoRA"] = tpt_lora
 
     def by_path(key):
-        return {"main path": main_path["launches"][key],
-                "int8 main path": int8_path["launches"][key],
-                "zero-shot": zero_shot["launches"][key]}
+        return {name: r["launches"][key] for name, r in paths.items()}
 
     src = "ttl_tpu_torch/csrc/attention_bshd.cu"
+    bhsd_src = "ttl_tpu_torch/csrc/attention_bhsd.cu"
     fc1 = k5[(768, 3072, torch.bfloat16)]
+
+    def bhsd_kernel(name, replaces, results, which, path, key):
+        """K3/K4's line: the numbers at the vision shape, the launches of
+        the path that runs the kernel, every shape under `shapes`."""
+        at_vision = next(iter(results.values()))[which]
+        return {"name": name, "route": "cuda", "source": bhsd_src,
+                "replaces": replaces, "launches": path["launches"][key],
+                **at_vision, "launches_by_path": by_path(key),
+                "shapes": {shape: r[which] for shape, r in results.items()}}
+
     kernels = [
         {"name": "bshd_attention_fwd", "route": "cuda", "source": src,
          "replaces": "ttl_tpu/ops/attention.py:431",
          "launches": main_path["launches"]["K1"], **fwd,
+         "library_ms": lib_k1,
          "launches_by_path": by_path("K1"),
          "key_tiled": {f"[16, {s}, 1024] {d}": r
                        for (kind_, s, d), r in tiled.items()
@@ -535,16 +777,27 @@ def main() -> int:
         {"name": "bshd_attention_bwd", "route": "cuda", "source": src,
          "replaces": "ttl_tpu/ops/attention.py:482",
          "launches": main_path["launches"]["K2"], **bwd,
+         "library_ms": lib_k2,
          "launches_by_path": by_path("K2"),
          "key_tiled": {f"[16, {s}, 1024] {d}": r
                        for (kind_, s, d), r in tiled.items()
                        if kind_ == "bwd"}},
+        bhsd_kernel("per_head_attention_fwd", "ttl_tpu/ops/attention.py:152",
+                    k3, "fwd", text_path, "K3 fwd"),
+        bhsd_kernel("per_head_attention_bwd", "ttl_tpu/ops/attention.py:200",
+                    k3, "bwd", text_path, "K3 bwd"),
+        bhsd_kernel("heads_attention_fwd", "ttl_tpu/ops/attention.py:285",
+                    k4, "fwd", prompt_path, "K4 fwd"),
+        bhsd_kernel("heads_attention_bwd", "ttl_tpu/ops/attention.py:308",
+                    k4, "bwd", prompt_path, "K4 bwd"),
         {"name": "quant_matmul", "route": "cuda",
          "source": "ttl_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "ttl_tpu/ops/quant_matmul.py:42",
          "launches": int8_path["launches"]["K5"],
          "max_abs_err": max(r["max_abs_err"] for r in k5.values()),
          "ms": fc1["ms"], "plain_ms": fc1["plain_ms"],
+         "bound_ms": fc1["bound_ms"], "bound_by": fc1["bound_by"],
+         "library_ms": fc1["linear_ms"],
          "launches_by_path": by_path("K5"),
          "shapes": {f"[{K5_ROWS}, {k}] x [{k}, {n}] {d}": r
                     for (k, n, d), r in k5.items()}},

@@ -188,3 +188,229 @@ def test_autograd_function_counts_launches(cuda_device):
     tfa.attention_bshd(q, k, v, 2, 17).sum().backward()
     assert (tfa.attention_bshd.fwd_launches,
             tfa.attention_bshd.bwd_launches) == (1, 1)
+
+
+# ------------------------------------- K3 (per_head) and K4 (heads), [B,H,S,D]
+#
+# `attention_bhsd_plain` is the plain version of both kernels. It is held
+# against `fused_attention` / `attention` (K3's Pallas functions) and
+# `attention_heads` (K4's), which run in interpret mode here. f32: forward
+# and VJP within 1e-5 (sums in another order). bf16: the forward within one
+# bf16 ulp of the output's scale (2^-8 relative, both round P and the output
+# to bf16); the VJP within 2^-6 of the largest gradient (autograd through the
+# plain version rounds its bf16 intermediates, the Pallas backward keeps
+# f32).
+
+BHSD_CASES = [
+    # (B, H, S, D, causal)
+    (2, 2, 16, 16, True),     # text, tile-aligned
+    (2, 3, 21, 16, True),     # odd S, causal
+    (1, 2, 37, 32, False),    # vision, odd S
+    (2, 4, 48, 8, True),
+    (3, 1, 16, 32, False),
+]
+JAX_BHSD = {"per_head": jfa.attention, "heads": jfa.attention_heads}
+
+
+def _bhsd_inputs(b, h, s, d, seed=0, n=3):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((b, h, s, d)).astype(np.float32)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("route", ["per_head", "heads"])
+@pytest.mark.parametrize("b,h,s,d,causal", BHSD_CASES)
+def test_bhsd_plain_forward_matches_pallas(route, b, h, s, d, causal):
+    q, k, v = _bhsd_inputs(b, h, s, d, seed=5)
+    want = np.asarray(JAX_BHSD[route](jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), causal))
+    got = tfa.attention_bhsd_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), causal)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_bhsd_plain_forward_matches_fused_attention():
+    q, k, v = _bhsd_inputs(2, 2, 21, 16, seed=6)
+    want = np.asarray(jfa.fused_attention(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v), causal=True))
+    got = tfa.attention_bhsd_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("route", ["per_head", "heads"])
+@pytest.mark.parametrize("b,h,s,d,causal", BHSD_CASES)
+def test_bhsd_plain_vjp_matches_pallas(route, b, h, s, d, causal):
+    q, k, v, do = _bhsd_inputs(b, h, s, d, seed=7, n=4)
+    _, vjp = jax.vjp(lambda q, k, v: JAX_BHSD[route](q, k, v, causal),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_(True) for t in (q, k, v))
+    tfa.attention_bhsd_plain(tq, tk, tv, causal).backward(
+        torch.from_numpy(do))
+    for got, w, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("route", ["per_head", "heads"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bhsd_plain_bf16_matches_pallas(route, causal):
+    b, h, s, d = 2, 2, 32, 16
+    q, k, v, do = (jnp.asarray(t).astype(jnp.bfloat16)
+                   for t in _bhsd_inputs(b, h, s, d, seed=8, n=4))
+    out, vjp = jax.vjp(lambda q, k, v: JAX_BHSD[route](q, k, v, causal),
+                       q, k, v)
+    want = vjp(do)
+
+    def to_torch(a):
+        return torch.from_numpy(np.asarray(a.astype(jnp.float32))).to(
+            torch.bfloat16)
+
+    tq, tk, tv = (to_torch(t).requires_grad_(True) for t in (q, k, v))
+    got = tfa.attention_bhsd_plain(tq, tk, tv, causal)
+    got.backward(to_torch(do))
+    ref = np.asarray(out.astype(jnp.float32))
+    err = np.abs(got.detach().float().numpy() - ref).max()
+    assert err <= 2.0 ** -8 * max(1.0, np.abs(ref).max())
+    for g, w, name in zip((tq.grad, tk.grad, tv.grad), want, "qkv"):
+        w = np.asarray(w.astype(jnp.float32))
+        err = np.abs(g.float().numpy() - w).max()
+        assert err <= 2.0 ** -6 * np.abs(w).max(), f"d{name}: {err}"
+
+
+@pytest.mark.parametrize("wrapper", ["attention_per_head", "attention_heads"])
+def test_bhsd_dispatchers_take_plain_on_cpu(wrapper):
+    q, k, v = (torch.from_numpy(t) for t in _bhsd_inputs(2, 2, 21, 16))
+    tfa.reset_launch_counts()
+    fn = getattr(tfa, wrapper)
+    assert torch.equal(fn(q, k, v, True),
+                       tfa.attention_bhsd_plain(q, k, v, True))
+    assert (fn.fwd_launches, fn.bwd_launches) == (0, 0)
+
+
+@pytest.mark.parametrize("launch", ["per_head_forward_cuda",
+                                    "heads_forward_cuda"])
+def test_bhsd_kernel_wrappers_refuse_cpu_tensors(launch):
+    q, k, v = (torch.from_numpy(t) for t in _bhsd_inputs(1, 2, 16, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(tfa, launch)(q, k, v, True)
+
+
+# ---------------------------------------------------------- the route switch
+
+@pytest.mark.parametrize("value,mode", [
+    ("", "bshd"), ("bshd", "bshd"), ("1", "per_head"), ("true", "per_head"),
+    ("True", "per_head"), ("per_head", "per_head"), ("heads", "heads"),
+    ("0", ""), ("off", ""), ("xla", ""), ("einsum", "")])
+def test_fused_mode_reads_the_environment(monkeypatch, value, mode):
+    monkeypatch.setenv("TTL_FUSED_ATTENTION", value)
+    tfa.reset_mode()
+    try:
+        assert tfa.fused_mode() == mode
+        with tfa.force_mode("heads"):
+            assert tfa.fused_mode() == "heads"
+    finally:
+        tfa.reset_mode()
+
+
+def test_unknown_fused_mode_raises(monkeypatch):
+    """The JAX package falls back silently; the port raises."""
+    monkeypatch.setenv("TTL_FUSED_ATTENTION", "flash")
+    tfa.reset_mode()
+    try:
+        with pytest.raises(ValueError, match="TTL_FUSED_ATTENTION='flash'"):
+            tfa.fused_mode()
+    finally:
+        monkeypatch.delenv("TTL_FUSED_ATTENTION")
+        tfa.reset_mode()
+    with pytest.raises(ValueError, match="unknown attention route"):
+        tfa.force_mode("flash")
+
+
+@pytest.mark.parametrize("mode", ["per_head", "heads", ""])
+def test_seq_len_needs_the_bshd_route(mode):
+    q, k, v = (torch.from_numpy(t) for t in _inputs(1, 32, 2, 16))
+    with tfa.force_mode(mode), pytest.raises(ValueError, match="bshd route"):
+        tfa.attention(q, k, v, 2, False, seq_len=17)
+
+
+@pytest.mark.parametrize("mode", ["bshd", "per_head", "heads", ""])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_dispatch_matches_jax_dispatch(mode, causal):
+    """`attention` against `ttl_tpu.models.clip._attention` under the same
+    forced route, f32, rtol/atol 2e-5."""
+    from ttl_tpu.models import clip as jclip
+    b, s, h, d = 2, 32, 2, 16
+    q, k, v = _inputs(b, s, h, d, seed=9)
+    with jfa.force_mode(mode):
+        want = np.asarray(jclip._attention(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v), h, causal))
+    with tfa.force_mode(mode):
+        got = tfa.attention(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), h, causal)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+# --------------------------------------------- K3/K4 kernels (need the card)
+
+BHSD_KERNEL_CASES = [
+    # (B, H, S, D, causal, dtype, fwd bound, bwd bound)
+    (3, 8, 16, 64, True, torch.float32, 1e-5, 1e-4),
+    (3, 8, 32, 64, True, torch.bfloat16, 1e-2, 2e-2),
+    (2, 8, 48, 64, True, torch.float32, 1e-5, 1e-4),
+    (2, 12, 64, 64, True, torch.bfloat16, 1e-2, 2e-2),
+    (2, 12, 80, 64, True, torch.float32, 1e-5, 1e-4),
+    (2, 8, 77, 64, True, torch.bfloat16, 1e-2, 2e-2),    # untruncated table
+    (2, 12, 197, 64, False, torch.float32, 1e-5, 1e-4),  # ViT-B/16
+    (4, 12, 197, 64, False, torch.bfloat16, 1e-2, 2e-2),
+    (2, 16, 257, 64, False, torch.bfloat16, 1e-2, 2e-2),  # ViT-L/14
+    (2, 12, 50, 64, False, torch.float32, 1e-5, 1e-4),   # ViT-B/32
+    (1, 16, 577, 64, False, torch.bfloat16, 1e-2, 2e-2),  # ViT-L/14@336px
+    (1, 16, 577, 64, False, torch.float32, 1e-5, 1e-4),
+    (2, 2, 21, 16, True, torch.float32, 1e-5, 1e-4),     # the tiny configs
+    (2, 2, 37, 32, False, torch.bfloat16, 1e-2, 2e-2),
+    (1, 2, 100, 32, True, torch.float32, 1e-5, 1e-4),    # causal tile skips
+    (1, 1, 1, 16, True, torch.float32, 1e-5, 1e-4),      # one token
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["per_head", "heads"])
+@pytest.mark.parametrize("b,h,s,d,causal,dtype,fwd_tol,bwd_tol",
+                         BHSD_KERNEL_CASES)
+def test_bhsd_kernels_match_plain_on_card(cuda_device, route, b, h, s, d,
+                                          causal, dtype, fwd_tol, bwd_tol):
+    forward = getattr(tfa, f"{route}_forward_cuda")
+    backward = getattr(tfa, f"{route}_backward_cuda")
+    q, k, v, do = (torch.from_numpy(t).to(cuda_device, dtype)
+                   for t in _bhsd_inputs(b, h, s, d, seed=10, n=4))
+    out = forward(q, k, v, causal)
+    ref = tfa.attention_bhsd_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= fwd_tol * max(1.0, ref.float().abs().max().item())
+
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tfa.attention_bhsd_plain(*leaves, causal).backward(do)
+    grads = backward(q, k, v, do, causal)
+    torch.cuda.synchronize()
+    for got, leaf in zip(grads, leaves):
+        want = leaf.grad.float()
+        assert torch.isfinite(got).all()
+        err = (got.float() - want).abs().max().item()
+        assert err <= bwd_tol * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,wrapper", [("per_head", "attention_per_head"),
+                                          ("heads", "attention_heads")])
+def test_bhsd_autograd_functions_count_launches(cuda_device, mode, wrapper):
+    q, k, v = (torch.from_numpy(t).to(cuda_device).requires_grad_(True)
+               for t in _inputs(2, 32, 2, 16, seed=11))
+    tfa.reset_launch_counts()
+    with tfa.force_mode(mode):
+        tfa.attention(q, k, v, 2, True).sum().backward()
+    fn = getattr(tfa, wrapper)
+    assert (fn.fwd_launches, fn.bwd_launches) == (1, 1)
+    assert tfa.attention_bshd.fwd_launches == 0

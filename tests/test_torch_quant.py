@@ -225,7 +225,7 @@ def _layer_quantum(pq, x, heads, eps, seq_len):
 
     h = tclip.layer_norm(x, pq["ln1"], eps)
     q, k, v = (lin(h, pq["attn"][n]) for n in "qkv")
-    a = tclip.attention_bshd(q, k, v, heads, seq_len)
+    a = tclip.attention(q, k, v, heads, False, seq_len)
     x = x + lin(a, pq["attn"]["o"])
     h = tclip.layer_norm(x, pq["ln2"], eps)
     lin(tclip.quick_gelu(lin(h, pq["mlp"]["fc1"])), pq["mlp"]["fc2"])

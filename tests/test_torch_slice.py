@@ -171,7 +171,8 @@ def test_cli_refuses_to_run_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--lora_encoder", "text"], ["--cocoop"], ["--lora_encoder", "prompt"],
+    ["--lora_encoder", "prompt", "--load", "ctx.pth"], ["--cocoop"],
+    ["--mesh_shape", "2"],
     ["--filter_plpd", "1"], ["--checkpoint_path", "clip.pt"], ["-a", "RN50"],
     ["--tta_steps", "0", "--cocoop"], ["--aug_list", "rotate"],
 ])

@@ -8,11 +8,13 @@ bridge (`models/convert.py`) maps one JAX leaf to one tensor.
 Numerics follow the JAX towers: matmuls in the compute dtype, layernorm
 statistics in f32, the patch embedding and the LoRA products accumulated in
 f32 (their operands upcast, which is exact for bf16), the final projection
-in f32. The vision tower pads its tokens once per forward to a multiple of
-16 (197 -> 208 at ViT-B/16) with zeros and routes attention through the
-bshd kernel pair, which masks the pad keys; pad rows ride the residual
-stream and nothing reads them. The text tower is causal and stays on the
-plain einsum-numerics attention, as in the JAX package.
+in f32. Attention goes through `ops.attention.attention`, which follows
+`TTL_FUSED_ATTENTION` as the JAX towers do. On the default (bshd) route the
+vision tower pads its tokens once per forward to a multiple of 16 (197 ->
+208 at ViT-B/16) with zeros and runs the bshd kernel pair, which masks the
+pad keys; pad rows ride the residual stream and nothing reads them; the
+causal text tower takes the einsum numerics. On the per_head and heads
+routes both towers run K3 or K4 unpadded.
 
 With `--prefix_quant int8` the vision parameters carry an int8 copy of the
 frozen prefix under `prefix_q` (`ops/quant.py`), and `vision_prefix` runs
@@ -26,7 +28,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..ops.attention import attention_bshd, causal_attention_plain
+import torch.utils.checkpoint
+
+from ..ops.attention import attention, fused_mode
 from ..ops.quant import linear_q
 
 Params = Dict[str, Any]
@@ -129,12 +133,7 @@ def encoder_layer(p: Params, x: torch.Tensor, *, heads: int, eps: float,
     if lora is not None:
         q = q + _lora_delta(h, lora["q"], lora_scale).to(q.dtype)
         v = v + _lora_delta(h, lora["v"], lora_scale).to(v.dtype)
-    if causal:
-        if seq_len is not None:
-            raise ValueError("causal towers are never padded")
-        a = causal_attention_plain(q, k, v, heads)
-    else:
-        a = attention_bshd(q, k, v, heads, seq_len)
+    a = attention(q, k, v, heads, causal, seq_len)
     x = x + linear(a, p["attn"]["o"])
     h = layer_norm(x, p["ln2"], eps)
     return x + linear(quick_gelu(linear(h, p["mlp"]["fc1"])), p["mlp"]["fc2"])
@@ -148,7 +147,7 @@ def encoder_layer_q(pq: Params, x: torch.Tensor, *, heads: int, eps: float,
     q = linear_q(h, pq["attn"]["q"])
     k = linear_q(h, pq["attn"]["k"])
     v = linear_q(h, pq["attn"]["v"])
-    a = attention_bshd(q, k, v, heads, seq_len)
+    a = attention(q, k, v, heads, False, seq_len)
     x = x + linear_q(a, pq["attn"]["o"])
     h = layer_norm(x, pq["ln2"], eps)
     return x + linear_q(quick_gelu(linear_q(h, pq["mlp"]["fc1"])),
@@ -156,11 +155,21 @@ def encoder_layer_q(pq: Params, x: torch.Tensor, *, heads: int, eps: float,
 
 
 def _run_layers(stacked: Params, x: torch.Tensor, lo: int, hi: int, *,
-                heads: int, eps: float, causal: bool,
+                heads: int, eps: float, causal: bool, remat: bool = False,
                 seq_len: Optional[int] = None) -> torch.Tensor:
+    """Layers [lo, hi) without adapters. With `remat`, where a gradient
+    flows, each layer is checkpointed: only its input is saved and its
+    internals (the attention inputs and probabilities among them) are
+    recomputed in the backward. Exact either way."""
+    def layer(i, h):
+        return encoder_layer(layer_at(stacked, i), h, heads=heads, eps=eps,
+                             causal=causal, seq_len=seq_len)
+
+    remat = remat and torch.is_grad_enabled() and x.requires_grad
     for i in range(lo, hi):
-        x = encoder_layer(layer_at(stacked, i), x, heads=heads, eps=eps,
-                          causal=causal, seq_len=seq_len)
+        x = (torch.utils.checkpoint.checkpoint(layer, i, x,
+                                               use_reentrant=False)
+             if remat else layer(i, x))
     return x
 
 
@@ -168,10 +177,12 @@ def _run_layers(stacked: Params, x: torch.Tensor, lo: int, hi: int, *,
 
 def pad_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, Optional[int]]:
     """Pad the token axis once per vision forward to a multiple of 16, with
-    zeros. Returns (x_padded, true_len), or (x, None) when already aligned."""
+    zeros, on the bshd route (the other routes mask no keys). Returns
+    (x_padded, true_len), or (x, None) off that route or when already
+    aligned."""
     s = x.shape[1]
     sp = ((s + 15) // 16) * 16
-    if sp == s:
+    if sp == s or fused_mode() != "bshd":
         return x, None
     pad = torch.zeros(x.shape[0], sp - s, x.shape[2], dtype=x.dtype,
                       device=x.device)
@@ -225,7 +236,8 @@ def vision_from_hidden(p: Params, hidden: torch.Tensor, cfg: VisionConfig, *,
                               eps=cfg.ln_eps, causal=False, lora=lora,
                               lora_scale=lora_scale, seq_len=seq_len)
         x = _run_layers(p["layers"], x, hi + 1, cfg.layers, heads=cfg.heads,
-                        eps=cfg.ln_eps, causal=False, seq_len=seq_len)
+                        eps=cfg.ln_eps, causal=False, remat=True,
+                        seq_len=seq_len)
     pooled = layer_norm(x[:, 0], p["ln_post"], cfg.ln_eps)
     return mm_f32(pooled, p["proj"])
 
@@ -257,18 +269,65 @@ def encode_image(p: Params, images: torch.Tensor, vision_cfg, *,
     return vision_features(p, images, vision_cfg, compute_dtype=compute_dtype)
 
 
+def _pool_eot(x: torch.Tensor, tokens: torch.Tensor, p: Params,
+              cfg: TextConfig) -> torch.Tensor:
+    """ln_final, the EOT row (the largest id) of every prompt, and the f32
+    projection. x is [N, ctx', D] with N a multiple of the C rows of
+    `tokens`: the table repeats along N."""
+    x = layer_norm(x, p["ln_final"], cfg.ln_eps)
+    eot = tokens.argmax(dim=-1).repeat(x.shape[0] // tokens.shape[0])
+    pooled = x[torch.arange(x.shape[0], device=x.device), eot]
+    return mm_f32(pooled, p["proj"])
+
+
 def text_features(p: Params, tokens: torch.Tensor, cfg: TextConfig, *,
+                  adapters: Optional[Params] = None,
+                  adapter_window: Tuple[int, int] = (9, 11),
+                  lora_scale: float = 2.0,
                   compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Token ids [N, ctx'] -> features [N, proj_dim] f32, pooled at the EOT
-    (the largest id of each row). ctx' may be a prefix of the context."""
+    """Token ids [C, ctx'] -> features [C, proj_dim] f32, pooled at the EOT
+    (the largest id of each row). ctx' may be a prefix of the context.
+
+    `adapters` puts LoRA on q/v of the layers adapter_window[0] ..
+    adapter_window[1]; the layers below run without gradient. Leaves are
+    [L, ...] (one set) or [S, L, ...] (one set per sample): then the frozen
+    layers run once, their output repeats S times, and the features come out
+    as [S*C, proj_dim], sample-major."""
     x = p["token_embed"][tokens].to(compute_dtype)
     x = x + p["pos_embed"][: x.shape[1]].to(compute_dtype)
+    run = dict(heads=cfg.heads, eps=cfg.ln_eps, causal=True)
+    if adapters is None:
+        x = _run_layers(p["layers"], x, 0, cfg.layers, **run)
+        return _pool_eot(x, tokens, p, cfg)
+    lo, hi = adapter_window
+    with torch.no_grad():
+        x = _run_layers(p["layers"], x, 0, lo, **run)
+    a = adapters["q"]["A"]
+    if a.dim() == 4:
+        x = x.repeat(a.shape[0], 1, 1)
+    for i in range(lo, hi + 1):
+        lora = tree_map(lambda t: t.select(-3, i - lo), adapters)
+        x = encoder_layer(layer_at(p["layers"], i), x, lora=lora,
+                          lora_scale=lora_scale, **run)
+    x = _run_layers(p["layers"], x, hi + 1, cfg.layers, remat=True, **run)
+    return _pool_eot(x, tokens, p, cfg)
+
+
+def text_features_from_embeddings(p: Params, embeddings: torch.Tensor,
+                                  tokens: torch.Tensor, cfg: TextConfig, *,
+                                  compute_dtype=torch.bfloat16,
+                                  remat: bool = False) -> torch.Tensor:
+    """Prompt embeddings [N, ctx', hidden] -> features [N, proj_dim] f32:
+    the prompt-tuning path assembles its prompts in embedding space.
+    `tokens` [C, ctx'] gives the EOT positions (N a multiple of C). With
+    `remat` every layer is checkpointed: the whole tower is differentiated
+    with respect to the embeddings at every step, and the saved attention
+    probabilities of all layers would otherwise stay alive together."""
+    x = embeddings.to(compute_dtype) \
+        + p["pos_embed"][: embeddings.shape[1]].to(compute_dtype)
     x = _run_layers(p["layers"], x, 0, cfg.layers, heads=cfg.heads,
-                    eps=cfg.ln_eps, causal=True)
-    x = layer_norm(x, p["ln_final"], cfg.ln_eps)
-    pooled = x[torch.arange(x.shape[0], device=x.device),
-               tokens.argmax(dim=-1)]
-    return mm_f32(pooled, p["proj"])
+                    eps=cfg.ln_eps, causal=True, remat=remat)
+    return _pool_eot(x, tokens, p, cfg)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

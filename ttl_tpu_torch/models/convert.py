@@ -65,6 +65,25 @@ def adapters_from_numpy(tree: Any, device) -> Any:
     return tensor_from_numpy(tree, device, torch.float32)
 
 
+def prompt_learner_from_numpy(state: Any, device):
+    """The JAX package's `PromptLearnerState` (any object with its fields,
+    array leaves readable by numpy) -> the port's dataclass: float leaves
+    keep their dtype, the token table and name lengths become int64."""
+    from .prompts import PromptLearnerState
+
+    def leaf(name, dtype=None):
+        a = getattr(state, name)
+        return None if a is None else tensor_from_numpy(a, device, dtype)
+
+    return PromptLearnerState(
+        ctx=leaf("ctx"), ctx_init=leaf("ctx_init"), prefix=leaf("prefix"),
+        suffix=leaf("suffix"), tokenized=leaf("tokenized", torch.int64),
+        name_lens=leaf("name_lens", torch.int64), n_ctx=int(state.n_ctx),
+        prompt_prefix=str(state.prompt_prefix),
+        ctx_position=str(state.ctx_position), cls=leaf("cls"),
+        cls_init=leaf("cls_init"))
+
+
 def params_to_numpy(tree: Any) -> Any:
     """The port's parameters -> numpy (bfloat16 leaves as float32)."""
     if isinstance(tree, dict):

@@ -95,6 +95,13 @@ def library() -> ctypes.CDLL:
     lib.ttl_bshd_attention_bwd.restype = i
     lib.ttl_bshd_attention_route.argtypes = [i, i, i, i]
     lib.ttl_bshd_attention_route.restype = i
+    for route in ("per_head", "heads"):
+        fwd = getattr(lib, f"ttl_{route}_attention_fwd")
+        fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, f, p]
+        fwd.restype = i
+        bwd = getattr(lib, f"ttl_{route}_attention_bwd")
+        bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, p]
+        bwd.restype = i
     lib.ttl_quant_matmul.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.ttl_quant_matmul.restype = i
     lib.ttl_cuda_error_string.argtypes = [i]

@@ -1,7 +1,8 @@
 """Entropy objectives over logits, in float32.
 
-Counterpart of `softmax_entropy` and `deyo_loss` in `ttl_tpu/ops/entropy.py`,
-over any leading batch axes: logits [..., N, C] give per-batch losses [...].
+Counterpart of `softmax_entropy`, `avg_entropy`, `select_confident`,
+`tpt_loss` and `deyo_loss` in `ttl_tpu/ops/entropy.py`, over any leading
+batch axes: logits [..., N, C] give per-batch losses [...].
 """
 from __future__ import annotations
 
@@ -64,3 +65,41 @@ def deyo_loss(logits: torch.Tensor, *,
     loss = torch.where(n_backward > 0, loss, torch.zeros_like(loss))
     return loss, {"ent": ent, "coeff": coeff, "keep": keep,
                   "n_backward": n_backward}
+
+
+def avg_entropy(logits: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Entropy of the averaged predictive distribution H(mean_i p_i) over
+    the N rows of each batch entry, in the log domain and clamped at the f32
+    minimum: logits [..., N, C] -> [...]. With `mask` [..., N] the average
+    runs over the rows where it is set."""
+    logits = logits.float()
+    logp = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
+    if mask is None:
+        avg_logp = torch.logsumexp(logp, dim=-2) - math.log(logits.shape[-2])
+    else:
+        masked = torch.where(mask.unsqueeze(-1), logp,
+                             torch.full_like(logp, -math.inf))
+        avg_logp = torch.logsumexp(masked, dim=-2) - torch.log(
+            mask.float().sum(dim=-1, keepdim=True))
+    avg_logp = avg_logp.clamp(min=torch.finfo(avg_logp.dtype).min)
+    return -(avg_logp * avg_logp.exp()).sum(dim=-1)
+
+
+def select_confident(logits: torch.Tensor, k: int):
+    """The k lowest-entropy rows of each batch entry: logits [..., N, C] ->
+    (selected logits [..., k, C], idx [..., k], mask [..., N] bool). Equal
+    entropies break towards the lower index, as `jax.lax.top_k` on the
+    negated entropies does."""
+    ent = softmax_entropy(logits)
+    idx = torch.argsort(ent, dim=-1, stable=True)[..., :k]
+    mask = torch.zeros_like(ent, dtype=torch.bool).scatter(-1, idx, True)
+    picked = torch.gather(
+        logits, -2, idx.unsqueeze(-1).expand(*idx.shape, logits.shape[-1]))
+    return picked, idx, mask
+
+
+def tpt_loss(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """TPT objective: the entropy of the distribution averaged over the
+    selected rows."""
+    return avg_entropy(logits, mask=mask)

@@ -186,8 +186,7 @@ def attach_prefix_quant(params: Params, upto: int, *,
 def quant_prefix_len(cfg, clip_cfg) -> int:
     """How many vision layers a config may quantise: those below the LoRA
     window when the image encoder is adapted, else the whole tower."""
-    from ttl_tpu.config import resolve_layer_range
-
+    from ..config import resolve_layer_range
     from ..models.clip import VisionConfig
     if not isinstance(clip_cfg.vision, VisionConfig):
         return 0

@@ -1,13 +1,15 @@
 """End-to-end evaluation on one device.
 
 Counterpart of `load_model`, `make_adapters0`, `evaluate_dataset` and `run`
-in `ttl_tpu/runner.py`, for the image-LoRA mode and zero-shot
-(`--tta_steps 0`), with the single-template or the ensemble (`--ensemble`)
-classifier and an optional int8 frozen prefix (`--prefix_quant int8`). Per
-dataset it builds the frozen text classifier once, streams samples through
-the JAX package's `SampleLoader`, and runs one fused step per batch of
-`sample_batch` samples: views rendered on the device, the episodic
-adaptation and the adapted clean-view logits (or the center view's
+in `ttl_tpu/runner.py`, for the LoRA modes (`--lora_encoder image|text`,
+with the DeYO objective or, `deyo_selection=False`, the TPT one), prompt
+tuning (`--lora_encoder prompt`) and zero-shot (`--tta_steps 0`), with the
+single-template or the ensemble (`--ensemble`) classifier and an optional
+int8 frozen prefix (`--prefix_quant int8`). Per dataset it builds the text
+side once (the frozen classifier, the class-prompt token table, or the
+prompt learner), streams samples through `SampleLoader`, and runs one fused
+step per batch of `sample_batch` samples: views rendered on the device, the
+episodic adaptation and the adapted clean-view logits (or the center view's
 zero-shot logits), and top-1/top-5 counts on the device.
 
 The loader's prefetch thread makes each batch's random view draws and, for
@@ -25,22 +27,23 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ttl_tpu.config import TTLConfig, resolve_layer_range
-from ttl_tpu.data.classnames import resolve_classnames
-from ttl_tpu.data.registry import build_dataset
-from ttl_tpu.data.views import DEFAULT_CANVAS, SampleLoader
-from ttl_tpu.utils.meters import AverageMeter, ProgressMeter, Summary
-
-from .adapt.ttl import (check_supported, compute_dtype, make_fused_ttl_fn,
-                        make_fused_zeroshot_fn)
-from .models.clip import init_clip_params
+from .adapt.ttl import (check_supported, compute_dtype, make_fused_tpt_fn,
+                        make_fused_ttl_fn, make_fused_zeroshot_fn)
+from .config import TTLConfig, resolve_layer_range
+from .data.classnames import resolve_classnames
+from .data.registry import build_dataset, dataset_exists, expected_subdir
+from .data.views import DEFAULT_CANVAS, SampleLoader
+from .models.clip import (init_clip_params, l2_normalize,
+                          text_features_from_embeddings)
 from .models.prompts import (build_ensemble_classifier, build_text_classifier,
-                             prompt_tokens)
+                             init_prompt_learner, prompt_tokens)
 from .models.zoo import get_arch
 from .ops.image import draw_batch
+from .ops.attention import fused_mode
 from .ops.lora import adapter_param_count, init_adapters
 from .ops.quant import attach_prefix_quant, quant_prefix_len
 from .parallel.eval import topk_counts
+from .utils.meters import AverageMeter, ProgressMeter, Summary
 
 
 def load_model(cfg: TTLConfig, device):
@@ -66,9 +69,12 @@ def load_model(cfg: TTLConfig, device):
 
 
 def make_adapters0(cfg: TTLConfig, clip_cfg, device) -> dict:
+    """Fresh adapters for the window of the adapted tower: the vision
+    tower's width with `--lora_encoder image`, else the text tower's."""
     lo, hi = resolve_layer_range(cfg, clip_cfg)
+    tower = clip_cfg.vision if cfg.lora_encoder == "image" else clip_cfg.text
     return init_adapters(torch.Generator().manual_seed(cfg.seed),
-                         hi - lo + 1, clip_cfg.vision.hidden, cfg.rank,
+                         hi - lo + 1, tower.hidden, cfg.rank,
                          cfg.init_method, device=device)
 
 
@@ -132,6 +138,23 @@ def text_classifier(set_id: str, cfg: TTLConfig, clip_cfg, params, *,
                                  compute_dtype=compute_dtype(cfg))
 
 
+def prompt_learner(set_id: str, cfg: TTLConfig, params):
+    """The prompt learner of a set's classes, on the parameters' device,
+    from the f32 token embedding table."""
+    return init_prompt_learner(params["text"]["token_embed"].float(),
+                               resolve_classnames(set_id), cfg.ctx_init)
+
+
+@torch.no_grad()
+def prompt_classifier(pl_state, cfg: TTLConfig, clip_cfg,
+                      params) -> torch.Tensor:
+    """Zero-shot in prompt mode: the [C, P] classifier of the prompt
+    learner's own, unadapted, ctx prompts."""
+    return l2_normalize(text_features_from_embeddings(
+        params["text"], pl_state.assemble(pl_state.ctx_init),
+        pl_state.tokenized, clip_cfg.text, compute_dtype=compute_dtype(cfg)))
+
+
 def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
                      adapters0, *, device, dataset=None,
                      max_samples: Optional[int] = None) -> List[float]:
@@ -147,7 +170,6 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
     device = torch.device(device)
     if dataset is None:
         dataset = build_dataset(set_id, cfg)
-    text_cls = text_classifier(set_id, cfg, clip_cfg, params, device=device)
     canvas = cfg.canvas if cfg.canvas > 0 else \
         (getattr(dataset, "max_image_dim", None) or DEFAULT_CANVAS)
     loader = SampleLoader(
@@ -155,14 +177,38 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
         canvas=canvas, bucket_canvas=cfg.canvas == 0,
         max_samples=max_samples, workers=cfg.workers,
         transform=_make_upload(cfg, device, cfg.sample_batch))
-    if cfg.tta_steps > 0:
-        adapt = make_fused_ttl_fn(clip_cfg, cfg)
+    if cfg.lora_encoder == "prompt" and cfg.tta_steps > 0:
+        pl_state = prompt_learner(set_id, cfg, params)
+        tune = make_fused_tpt_fn(clip_cfg, cfg)
+
+        def step_fn(b: DeviceBatch) -> torch.Tensor:
+            return tune(params, pl_state, b.canvases, b.hs, b.ws,
+                        b.draws)[0].logits
+    elif cfg.tta_steps > 0:
+        # text mode re-encodes the class prompts at every step: it takes
+        # their token table, and no frozen classifier
+        if cfg.lora_encoder == "text":
+            text_cls = None
+            toks = prompt_tokens(resolve_classnames(set_id),
+                                 cfg.ctx_init.replace("_", " "))
+        else:
+            text_cls = text_classifier(set_id, cfg, clip_cfg, params,
+                                       device=device)
+            toks = None
+        adapt = make_fused_ttl_fn(clip_cfg, cfg, tokens=toks)
 
         def step_fn(b: DeviceBatch) -> torch.Tensor:
             return adapt(params, text_cls, adapters0, b.canvases, b.hs, b.ws,
                          b.draws).logits
     else:
-        # zero-shot on the deterministic center view
+        # zero-shot on the deterministic center view; in prompt mode with
+        # the prompt learner's own unadapted ctx prompts
+        if cfg.lora_encoder == "prompt":
+            text_cls = prompt_classifier(
+                prompt_learner(set_id, cfg, params), cfg, clip_cfg, params)
+        else:
+            text_cls = text_classifier(set_id, cfg, clip_cfg, params,
+                                       device=device)
         zeroshot = make_fused_zeroshot_fn(clip_cfg, cfg)
 
         def step_fn(b: DeviceBatch) -> torch.Tensor:
@@ -219,11 +265,17 @@ def run(cfg: TTLConfig, *, device, datasets: Optional[Dict] = None,
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    fused_mode()   # an unknown TTL_FUSED_ATTENTION raises before any work
     clip_cfg, params = load_model(cfg, device)
-    adapters0 = make_adapters0(cfg, clip_cfg, device)
-    print(f"=> Model created: visual backbone {cfg.arch} "
-          f"({adapter_param_count(adapters0):,} LoRA params/sample)",
-          flush=True)
+    adapters0 = (None if cfg.lora_encoder == "prompt"
+                 else make_adapters0(cfg, clip_cfg, device))
+    extra = (f" ({adapter_param_count(adapters0):,} LoRA params/sample)"
+             if adapters0 is not None else "")
+    print(f"=> Model created: visual backbone {cfg.arch}{extra}", flush=True)
+    if cfg.load and (cfg.cocoop or cfg.lora_encoder == "prompt"):
+        raise NotImplementedError(
+            "--load with a CoOp/CoCoOp prompt checkpoint is not ported to "
+            "ttl_tpu_torch yet (ROADMAP Queue 1, item 11)")
     if cfg.load:
         print(f"WARNING: --load {cfg.load} is a CoOp/CoCoOp prompt "
               "checkpoint and has no effect in the LoRA modes; ignoring it, "
@@ -234,7 +286,6 @@ def run(cfg: TTLConfig, *, device, datasets: Optional[Dict] = None,
         print(f"evaluating: {set_id}", flush=True)
         ds = datasets.get(set_id) if datasets else None
         if ds is None:
-            from ttl_tpu.data.registry import dataset_exists, expected_subdir
             sub = expected_subdir(set_id)
             if sub is not None and not dataset_exists(set_id, cfg.data):
                 raise FileNotFoundError(
