@@ -51,7 +51,20 @@ per source, side by side), then:
 16. `deyo_selection=False` (TPT on LoRA) on the default route, a short run:
    18 K1 and 3 K2 launches per batch;
 17. card against CPU for one sample of phases 14 and 15, the CPU on the
-   plain versions under the same route.
+   plain versions under the same route;
+18. K6, layernorm folded into the linear behind it, against
+   `ln_matmul_plain` on the card at the CoCoOp path's shapes
+   ([106496, 768] x [768, 768] and x [768, 3072] bf16), the text width, one
+   f32 shape and a ragged M with rows of zeros, with `F.layer_norm` followed
+   by `F.linear` (a pair of library calls, on no path) and the package's own
+   `layer_norm` + `linear` timed beside it;
+19. `--cocoop` on the default route through `runner.run`: the frozen vision
+   tower over all 12 layers and 64 views through K6 (48 launches per batch)
+   and K1 (12), no other kernel;
+20. card against CPU for one CoCoOp sample, `logits` and `adapted_logits`;
+21. `--cocoop --load FILE` with a CoCoOp checkpoint the script writes itself
+   (a ctx and a meta-net from a seeded generator): one batch with it and one
+   without must give different logits.
 
 Every kernel's line also carries `bound_ms`, the least time the card could
 take for the call (the larger of its bytes over 3.35 TB/s and its operations
@@ -125,6 +138,28 @@ BHSD_SHAPES = [(512, 12, 197, 64, False, torch.bfloat16),
                (1600, 8, 32, 64, True, torch.bfloat16),
                (64, 12, 197, 64, False, torch.float32),
                (1600, 8, 32, 64, True, torch.float32)]
+# K6 at the CoCoOp path's shapes (8 samples x 64 views x 208 tokens), the text
+# tower's width (1600 prompts x 32 tokens), one f32 shape, and a ragged M
+# (prime, so a multiple of no row tile) with rows of zeros: (M, K, N, dtype)
+K6_ROWS = 512 * SEQ_PAD
+K6_SHAPES = [(K6_ROWS, 768, 768, torch.bfloat16),
+             (K6_ROWS, 768, 3072, torch.bfloat16),
+             (1600 * 32, 512, 2048, torch.bfloat16),
+             (8192, 768, 768, torch.float32),
+             (10007, 768, 3072, torch.bfloat16)]
+# K6 vs plain. bf16: both round the normalised row and the output once, but
+# the statistics and the product sum in another order, so a normalised value
+# or an output may round the other way: one bf16 step of the output, which
+# at the top of its range is at most 2^-7 of the largest output. f32: the
+# order of the sums only, 1e-5 of the output's scale.
+K6_BOUND = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+# The CoCoOp sample of the card-against-CPU run. With random weights the
+# features barely depend on the image and the two best of the 200 classes
+# lie close: of the images made from seeds 1 to 12, this one keeps them
+# furthest apart on the card (0.046 for `logits`, 0.094 for
+# `adapted_logits`; seed 1: 0.0015), beyond the bf16 noise between card and
+# CPU, so that agreement at top-1 is a statement about the port.
+COCOOP_IMAGE_SEED = SEED + 3
 # the card's published peaks (H100 SXM, dense, at 700 W): bytes/s of HBM and
 # operations/s by operand type
 PEAK_BYTES = 3.35e12
@@ -382,6 +417,64 @@ def phase_k5(tq) -> dict:
     return results
 
 
+def phase_k6(tlm) -> dict:
+    """K6 against ln_matmul_plain on the card at K6_SHAPES, with the pair of
+    library calls that computes the same function (F.layer_norm, F.linear;
+    w transposed to F.linear's layout outside the timing) and the package's
+    own layer_norm + linear, the pair K6 stands in for, timed beside it."""
+    from ttl_tpu_torch.models.clip import layer_norm, linear
+    F = torch.nn.functional
+    g = torch.Generator().manual_seed(SEED + 6)
+    results = {}
+    for m, k, n, dtype in K6_SHAPES:
+        x = torch.randn(m, k, generator=g) * 2.0 + 0.5
+        ragged = m % 32 != 0
+        if ragged:
+            x[[0, m // 2, m - 1]] = 0.0
+        x = x.to("cuda", dtype)
+        scale = (1.0 + 0.1 * torch.randn(k, generator=g)).cuda()
+        bias = (0.1 * torch.randn(k, generator=g)).cuda()
+        w = (torch.randn(k, n, generator=g) * 0.05).to("cuda", dtype)
+        b = (0.1 * torch.randn(n, generator=g)).cuda()
+        before = tlm.ln_matmul.launches
+        got = tlm.ln_matmul(x, scale, bias, w, b, 1e-5)
+        want = tlm.ln_matmul_plain(x, scale, bias, w, b, 1e-5)
+        torch.cuda.synchronize()
+        shape = f"[{m}, {k}] x [{k}, {n}] {dtype}"
+        if tlm.ln_matmul.launches != before + 1:
+            raise AssertionError(f"K6 at {shape}: no launch was counted")
+        err = (got.float() - want.float()).abs().max().item()
+        limit = K6_BOUND[dtype] * max(1.0, want.float().abs().max().item())
+        if not torch.isfinite(got).all() or not err <= limit:
+            raise AssertionError(f"K6 at {shape} disagrees with its plain "
+                                 f"version: {err} > {limit}")
+        ms = median_ms(lambda: tlm.ln_matmul(x, scale, bias, w, b, 1e-5))
+        plain_ms = median_ms(
+            lambda: tlm.ln_matmul_plain(x, scale, bias, w, b, 1e-5), reps=5)
+        wt, sc, bi, bb = (w.t().contiguous(), scale.to(dtype),
+                          bias.to(dtype), b.to(dtype))
+        library_ms = median_ms(lambda: F.linear(
+            F.layer_norm(x, (k,), sc, bi, 1e-5), wt, bb))
+        ln_p, lin_p = {"scale": scale, "bias": bias}, {"w": w, "b": bb}
+        pair_ms = median_ms(lambda: linear(layer_norm(x, ln_p, 1e-5), lin_p))
+        itemsize = x.element_size()
+        results[(m, k, n, dtype)] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            # x and w read, the three f32 vectors read, out written once;
+            # 2*M*K*N operations of the product's type
+            **bound((m * k + k * n + m * n) * itemsize + 4 * (2 * k + n),
+                    2 * m * k * n, dtype),
+            "library_ms": library_ms, "port_pair_ms": pair_ms}
+        r = results[(m, k, n, dtype)]
+        log(f"K6 {shape}{' (rows of zeros)' if ragged else ''}: max_abs_err "
+            f"{err:.3e} (bound {limit:.3e}), kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), F.layer_norm + F.linear {library_ms:.4f} ms, "
+            f"the package's layer_norm + linear {pair_ms:.4f} ms")
+        del x, w, wt, got, want
+    return results
+
+
 class SyntheticImages:
     """In-memory dataset of uint8 [H, W, 3] images of several sizes, with the
     interface of the package's ArrayDataset that the loader reads."""
@@ -413,7 +506,7 @@ def config(*flags):
 
 class StepProbe:
     """Stands in for the runner's step factory (make_fused_ttl_fn,
-    make_fused_tpt_fn or make_fused_zeroshot_fn). It wraps the step, records
+    make_fused_tpt_fn, make_fused_cocoop_fn or make_fused_zeroshot_fn). It wraps the step, records
     the host clock as each step is dispatched and keeps each batch's logits
     for `check` after the run: checking them inside would wait for the device
     and empty the runner's pipeline. With `profile`, each step runs under
@@ -433,7 +526,8 @@ class StepProbe:
                 res = self._profiled(step_fn, args)
             else:
                 res = step_fn(*args)
-            # AdaptResult, (AdaptResult, ctx) from prompt tuning, or logits
+            # AdaptResult or CoCoOpResult, (AdaptResult, ctx) from prompt
+            # tuning, or logits
             out = res if hasattr(res, "logits") or torch.is_tensor(res) \
                 else res[0]
             self.logits.append(getattr(out, "logits", out))
@@ -465,13 +559,14 @@ class StepProbe:
 
 
 def launch_counts(fa, tq) -> dict:
+    from ttl_tpu_torch.ops.ln_matmul import ln_matmul
     return {"K1": fa.attention_bshd.fwd_launches,
             "K2": fa.attention_bshd.bwd_launches,
             "K3 fwd": fa.attention_per_head.fwd_launches,
             "K3 bwd": fa.attention_per_head.bwd_launches,
             "K4 fwd": fa.attention_heads.fwd_launches,
             "K4 bwd": fa.attention_heads.bwd_launches,
-            "K5": tq.linear_q.launches}
+            "K5": tq.linear_q.launches, "K6": ln_matmul.launches}
 
 
 @contextlib.contextmanager
@@ -495,8 +590,37 @@ def attention_route(fa, value):
 
 
 def reset_counts(fa, tq) -> None:
+    from ttl_tpu_torch.ops.ln_matmul import ln_matmul
     fa.reset_launch_counts()
     tq.linear_q.launches = 0
+    ln_matmul.launches = 0
+
+
+def step_factory(cfg) -> str:
+    """The name of the runner's step factory that `cfg` goes through."""
+    if cfg.cocoop:
+        return "make_fused_cocoop_fn"
+    if cfg.tta_steps == 0:
+        return "make_fused_zeroshot_fn"
+    if cfg.lora_encoder == "prompt":
+        return "make_fused_tpt_fn"
+    return "make_fused_ttl_fn"
+
+
+def drive(cfg, probe, n_images: int):
+    """runner.run over `n_images` synthetic images with `probe` in the place
+    of the step factory; the run's results."""
+    from ttl_tpu_torch import runner
+    attr = step_factory(cfg)
+    original = getattr(runner, attr)
+    setattr(runner, attr, probe)
+    try:
+        res = runner.run(cfg, device=torch.device("cuda"),
+                         datasets={"A": SyntheticImages(n_images)})
+    finally:
+        setattr(runner, attr, original)
+    probe.check(cfg.sample_batch, 200)
+    return res
 
 
 def phase_path(fa, tq, name: str, cfg, per_batch: dict,
@@ -507,29 +631,13 @@ def phase_path(fa, tq, name: str, cfg, per_batch: dict,
     profile one batch."""
     from ttl_tpu_torch import runner
 
-    if cfg.tta_steps == 0:
-        attr = "make_fused_zeroshot_fn"
-    elif cfg.lora_encoder == "prompt":
-        attr = "make_fused_tpt_fn"
-    else:
-        attr = "make_fused_ttl_fn"
-    original = getattr(runner, attr)
+    original = getattr(runner, step_factory(cfg))
     per_batch = {**dict.fromkeys(launch_counts(fa, tq), 0), **per_batch}
-
-    def drive(probe, n_images):
-        setattr(runner, attr, probe)
-        try:
-            res = runner.run(cfg, device=torch.device("cuda"),
-                             datasets={"A": SyntheticImages(n_images)})
-        finally:
-            setattr(runner, attr, original)
-        probe.check(cfg.sample_batch, 200)
-        return res
 
     probe = StepProbe(original)
     start = time.perf_counter()
     reset_counts(fa, tq)
-    res = drive(probe, 16)
+    res = drive(cfg, probe, 16)
     counts = launch_counts(fa, tq)
     n_batches = len(probe.starts)
     log(f"{name}: {n_batches} batches, launches {counts}, top1/top5 "
@@ -549,7 +657,7 @@ def phase_path(fa, tq, name: str, cfg, per_batch: dict,
     # step's counts, so the dispatch clock ticks at the steady batch rate.
     timing = StepProbe(original)
     torch.cuda.reset_peak_memory_stats()
-    drive(timing, 80)
+    drive(cfg, timing, 80)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     pace = np.diff(timing.starts[cfg.pipeline_depth + 1:])
     rate = cfg.sample_batch / np.median(pace)
@@ -559,7 +667,7 @@ def phase_path(fa, tq, name: str, cfg, per_batch: dict,
         f"device memory {peak_gb:.3f} GB")
 
     profiled = StepProbe(original, profile=True)
-    drive(profiled, cfg.sample_batch)
+    drive(cfg, profiled, cfg.sample_batch)
     busy_s = profiled.busy_ms / 1e3
     log(f"{name}, one batch under torch.profiler: device busy {busy_s:.4f} "
         f"s, {100 * busy_s / np.median(pace):.1f}% of the steady s/batch; "
@@ -568,11 +676,14 @@ def phase_path(fa, tq, name: str, cfg, per_batch: dict,
             "busy_share": busy_s / np.median(pace), "peak_gb": peak_gb}
 
 
-def sample_step(cfg):
+def sample_step(cfg, image_seed: int = SEED + 1):
     """run_on(device) -> one fixed sample's logits through `cfg`'s path,
-    with weights made on the card and moved to `device`."""
+    with weights made on the card and moved to `device`; for CoCoOp a
+    [2, C] tensor, `logits` above `adapted_logits`. `image_seed` makes the
+    sample's pixels."""
     from ttl_tpu_torch import runner
-    from ttl_tpu_torch.adapt.ttl import (make_fused_tpt_fn,
+    from ttl_tpu_torch.adapt.ttl import (make_fused_cocoop_fn,
+                                         make_fused_tpt_fn,
                                          make_fused_ttl_fn,
                                          make_fused_zeroshot_fn)
     from ttl_tpu_torch.data.classnames import resolve_classnames
@@ -582,25 +693,38 @@ def sample_step(cfg):
 
     dev = torch.device("cuda")
     clip_cfg, params = runner.load_model(cfg, dev)
-    rng = np.random.default_rng(SEED + 1)
+    rng = np.random.default_rng(image_seed)
     canvas = np.zeros((1, 256, 256, 3), np.uint8)
     canvas[0, :200, :256] = rng.integers(0, 256, (200, 256, 3),
                                          dtype=np.uint8)
     host = {"canvases": torch.from_numpy(canvas),
             "hs": torch.tensor([200]), "ws": torch.tensor([256])}
     draws = draw_batch(cfg.seed, [3], cfg.batch_size)
-    if cfg.tta_steps > 0 and cfg.lora_encoder == "prompt":
+
+    def moved(state, put):
+        """A dataclass of tensors (and static fields) with its tensors put."""
+        return dataclasses.replace(state, **{
+            f.name: put(getattr(state, f.name))
+            for f in dataclasses.fields(state)
+            if torch.is_tensor(getattr(state, f.name))})
+
+    if cfg.cocoop:
+        co_state = runner.cocoop_state("A", cfg, clip_cfg, params)
+        cocoop = make_fused_cocoop_fn(clip_cfg, cfg)
+
+        def step(put):
+            res = cocoop(tree_map(put, params), moved(co_state, put),
+                         put(host["canvases"]), put(host["hs"]),
+                         put(host["ws"]), tree_map(put, draws))
+            return torch.stack([res.logits, res.adapted_logits], dim=1)
+    elif cfg.tta_steps > 0 and cfg.lora_encoder == "prompt":
         pl_state = runner.prompt_learner("A", cfg, params)
         tune = make_fused_tpt_fn(clip_cfg, cfg)
 
         def step(put):
-            state = dataclasses.replace(pl_state, **{
-                f.name: put(getattr(pl_state, f.name))
-                for f in dataclasses.fields(pl_state)
-                if torch.is_tensor(getattr(pl_state, f.name))})
-            return tune(tree_map(put, params), state, put(host["canvases"]),
-                        put(host["hs"]), put(host["ws"]),
-                        tree_map(put, draws))[0].logits
+            return tune(tree_map(put, params), moved(pl_state, put),
+                        put(host["canvases"]), put(host["hs"]),
+                        put(host["ws"]), tree_map(put, draws))[0].logits
     elif cfg.tta_steps > 0:
         adapters0 = runner.make_adapters0(cfg, clip_cfg, dev)
         text_mode = cfg.lora_encoder == "text"
@@ -633,11 +757,11 @@ def sample_step(cfg):
     return run_on
 
 
-def card_and_cpu(cfg):
+def card_and_cpu(cfg, **sample):
     """One sample through the CUDA path and through the plain path on the
     CPU, same weights (made, and quantised, on the card) and view draws:
     (card logits, CPU logits, CPU seconds)."""
-    run_on = sample_step(cfg)
+    run_on = sample_step(cfg, **sample)
     card = run_on(torch.device("cuda"))
     t0 = time.perf_counter()
     cpu = run_on(torch.device("cpu"))
@@ -663,6 +787,17 @@ def phase_card_vs_cpu(cfg, name: str):
     return card, cpu
 
 
+def phase_cocoop_card_vs_cpu(cfg) -> None:
+    """CoCoOp, card against CPU within CARD_CPU_BOUND, for `logits` (the
+    clean view under its own unadapted ctx: the runner's result) and for
+    `adapted_logits` (the clean view under the ctx the step tuned, which
+    the 63 random views, the backward and AdamW reach)."""
+    card, cpu, cpu_s = card_and_cpu(cfg, image_seed=COCOOP_IMAGE_SEED)
+    for row, name in enumerate(("logits", "adapted_logits")):
+        expect_close(f"CoCoOp {name}", card[row], cpu[row], CARD_CPU_BOUND,
+                     cpu_s)
+
+
 def phase_int8_card_vs_cpu(name: str, flags: tuple, fp) -> None:
     """The path `flags` with the int8 prefix, card against CPU, within
     CARD_CPU_BOUND plus the CPU's int8 effect; the spread of the int8 effect
@@ -683,6 +818,52 @@ def phase_int8_card_vs_cpu(name: str, flags: tuple, fp) -> None:
                              f"match the CPU's (spread ratio {ratio})")
 
 
+def write_cocoop_checkpoint(path, n_ctx: int, width: int, proj_dim: int):
+    """A CoCoOp checkpoint as the reference's trainer saves it (a state dict
+    under 'state_dict', Linear weights as [out, in]), its ctx and meta-net
+    drawn from a seeded generator."""
+    g = torch.Generator().manual_seed(SEED + 21)
+    hidden = proj_dim // 16
+
+    def unif(shape, fan_in):
+        return (torch.rand(shape, generator=g) * 2 - 1) / fan_in ** 0.5
+
+    torch.save({"epoch": 10, "state_dict": {
+        "prompt_learner.ctx": 0.02 * torch.randn(n_ctx, width, generator=g),
+        "prompt_learner.meta_net.linear1.weight":
+            unif((hidden, proj_dim), proj_dim),
+        "prompt_learner.meta_net.linear1.bias": unif((hidden,), proj_dim),
+        "prompt_learner.meta_net.linear2.weight":
+            unif((width, hidden), hidden),
+        "prompt_learner.meta_net.linear2.bias": unif((width,), hidden),
+        "token_prefix": torch.zeros(3, 1, width),
+        "token_suffix": torch.zeros(3, 72, width)}}, path)
+
+
+def phase_cocoop_load(build_dir) -> float:
+    """One batch of `--cocoop` with and without `--load`: the checkpoint's
+    ctx and meta-net must reach the logits. Returns their largest
+    difference."""
+    from ttl_tpu_torch import runner
+    from ttl_tpu_torch.models.zoo import get_arch
+    plain_cfg = config("--cocoop")
+    clip_cfg = get_arch(plain_cfg.arch)
+    path = os.path.join(build_dir, "cocoop_smoke_checkpoint.pth")
+    write_cocoop_checkpoint(path, len(plain_cfg.ctx_init.split("_")),
+                            clip_cfg.text.hidden, clip_cfg.vision.proj_dim)
+    logits = []
+    for cfg in (plain_cfg, config("--cocoop", "--load", path)):
+        probe = StepProbe(runner.make_fused_cocoop_fn)
+        drive(cfg, probe, cfg.sample_batch)
+        logits.append(probe.logits[0].float())
+    diff = (logits[0] - logits[1]).abs().max().item()
+    log(f"CoCoOp --load {path}: one batch with and without the checkpoint, "
+        f"max |difference of the logits| {diff:.4f}")
+    if not diff > 1e-2:
+        raise AssertionError("--load left the CoCoOp logits as they were")
+    return diff
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -691,6 +872,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from ttl_tpu_torch.ops import _build
     from ttl_tpu_torch.ops import attention as fa
+    from ttl_tpu_torch.ops import ln_matmul as tlm
     from ttl_tpu_torch.ops import quant as tq
 
     smi = subprocess.run(
@@ -740,9 +922,15 @@ def main() -> int:
         fa, tq, "TPT on LoRA",
         config("--deyo_selection", "False"),
         {"K1": 18, "K2": 3}, timed=False)
+    k6 = phase_k6(tlm)
+    cocoop_cfg = config("--cocoop")
+    cocoop_path = phase_path(fa, tq, "CoCoOp", cocoop_cfg,
+                             {"K1": 12, "K6": 48})
+    phase_cocoop_card_vs_cpu(cocoop_cfg)
+    phase_cocoop_load(lib.parent)
     paths = {"main path": main_path, "int8 main path": int8_path,
              "zero-shot": zero_shot, "text-LoRA (per_head)": text_path,
-             "prompt tuning (heads)": prompt_path}
+             "prompt tuning (heads)": prompt_path, "CoCoOp": cocoop_path}
     log("steady samples/s, device busy share, peak device memory: "
         + "; ".join(f"{name} {r['samples_per_s']:.3f}, "
                     f"{100 * r['busy_share']:.1f}%, {r['peak_gb']:.3f} GB"
@@ -755,6 +943,7 @@ def main() -> int:
     src = "ttl_tpu_torch/csrc/attention_bshd.cu"
     bhsd_src = "ttl_tpu_torch/csrc/attention_bhsd.cu"
     fc1 = k5[(768, 3072, torch.bfloat16)]
+    k6_fc1 = k6[(K6_ROWS, 768, 3072, torch.bfloat16)]
 
     def bhsd_kernel(name, replaces, results, which, path, key):
         """K3/K4's line: the numbers at the vision shape, the launches of
@@ -801,6 +990,15 @@ def main() -> int:
          "launches_by_path": by_path("K5"),
          "shapes": {f"[{K5_ROWS}, {k}] x [{k}, {n}] {d}": r
                     for (k, n, d), r in k5.items()}},
+        {"name": "ln_matmul", "route": "cuda",
+         "source": "ttl_tpu_torch/csrc/ln_matmul.cu",
+         "replaces": "ttl_tpu/ops/ln_matmul.py:38",
+         "launches": cocoop_path["launches"]["K6"],
+         **{**k6_fc1,
+            "max_abs_err": max(r["max_abs_err"] for r in k6.values())},
+         "launches_by_path": by_path("K6"),
+         "shapes": {f"[{m}, {k}] x [{k}, {n}] {d}": r
+                    for (m, k, n, d), r in k6.items()}},
     ]
     print(json.dumps({"kernels": kernels}, default=str))
     print(smi)

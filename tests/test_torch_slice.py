@@ -156,7 +156,9 @@ def test_runner_end_to_end_int8_and_zero_shot(tmp_path, capsys, mode):
 def test_runtime_imports_no_jax():
     code = ("import sys, ttl_tpu_torch, ttl_tpu_torch.runner, "
             "ttl_tpu_torch.cli, ttl_tpu_torch.ops.quant, "
-            "ttl_tpu_torch.adapt.ttl, ttl_tpu_torch.models.prompts; "
+            "ttl_tpu_torch.adapt.ttl, ttl_tpu_torch.models.prompts, "
+            "ttl_tpu_torch.adapt.cocoop, ttl_tpu_torch.ops.ln_matmul, "
+            "ttl_tpu_torch.utils.checkpoint; "
             "assert 'jax' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith('jax'))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -171,10 +173,9 @@ def test_cli_refuses_to_run_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--lora_encoder", "prompt", "--load", "ctx.pth"], ["--cocoop"],
     ["--mesh_shape", "2"],
     ["--filter_plpd", "1"], ["--checkpoint_path", "clip.pt"], ["-a", "RN50"],
-    ["--tta_steps", "0", "--cocoop"], ["--aug_list", "rotate"],
+    ["--aug_list", "rotate"],
 ])
 def test_uncovered_flags_raise(flags):
     args = tcli.build_parser().parse_args(["data", *flags])

@@ -31,13 +31,16 @@ import sys
 import numpy as np
 import ttl_tpu_torch.cli, ttl_tpu_torch.runner, ttl_tpu_torch.adapt.ttl
 import ttl_tpu_torch.models.prompts, ttl_tpu_torch.ops.quant
+import ttl_tpu_torch.adapt.cocoop, ttl_tpu_torch.ops.ln_matmul
+import ttl_tpu_torch.utils.checkpoint
 from ttl_tpu_torch.config import TTLConfig
 from ttl_tpu_torch.data.views import ArrayDataset
 
 rng = np.random.default_rng(0)
 ds = ArrayDataset(rng.integers(0, 256, (2, 40, 56, 3), dtype=np.uint8),
                   np.array([3, 1]))
-for mode in ({}, {"lora_encoder": "text"}, {"lora_encoder": "prompt"}):
+for mode in ({}, {"lora_encoder": "text"}, {"lora_encoder": "prompt"},
+             {"cocoop": True}):
     cfg = TTLConfig(arch="test-tiny", resolution=64, batch_size=8,
                     sample_batch=2, compute_dtype="float32",
                     param_dtype="float32", workers=1, **mode)

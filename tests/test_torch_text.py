@@ -495,10 +495,24 @@ def test_runner_raises_on_unknown_route(monkeypatch):
         tfa.reset_mode()
 
 
-def test_prompt_checkpoint_is_not_ported():
-    cfg = TTLConfig(arch="test-tiny", lora_encoder="prompt", load="ctx.pth")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        trunner.run(cfg, device="cpu", datasets={})
+def test_prompt_checkpoint_is_not_ported(tmp_path, capsys):
+    """It was not, and raised; now `--lora_encoder prompt --load FILE` reads
+    the file (tests/test_torch_cocoop.py holds the loaded run against the
+    JAX runner). Here: a path with no file behind it prints the reference's
+    line and the run goes on with the prompt learner's own ctx."""
+    rng = np.random.default_rng(0)
+    ds = ArrayDataset(rng.integers(0, 256, (2, 40, 56, 3), dtype=np.uint8),
+                      np.array([3, 1]))
+    kw = dict(arch="test-tiny", resolution=64, batch_size=V, sample_batch=2,
+              compute_dtype="float32", param_dtype="float32", workers=1,
+              lora_encoder="prompt")
+    want = trunner.run(TTLConfig(**kw), device="cpu", datasets={"A": ds})
+    capsys.readouterr()
+    missing = str(tmp_path / "ctx.pth")
+    got = trunner.run(TTLConfig(load=missing, **kw), device="cpu",
+                      datasets={"A": ds})
+    assert got == want
+    assert f"=> no checkpoint found at '{missing}'" in capsys.readouterr().out
 
 
 def test_text_mode_adapters_take_the_text_width():

@@ -2,8 +2,9 @@
 zero-shot step.
 
 Counterpart of `make_ttl_adapt_fn`, `make_batched_ttl_fn`,
-`make_fused_ttl_fn`, `make_tpt_adapt_fn`, `make_fused_tpt_fn` and
-`make_fused_zeroshot_fn` in `ttl_tpu/adapt/ttl.py`. Where the JAX package
+`make_fused_ttl_fn`, `make_tpt_adapt_fn`, `make_fused_tpt_fn`,
+`make_fused_cocoop_fn` and `make_fused_zeroshot_fn` in
+`ttl_tpu/adapt/ttl.py`. Where the JAX package
 vmaps a per-sample program, the port batches: every trainable leaf carries
 a leading sample axis S. For S samples of V views:
 
@@ -68,7 +69,6 @@ def check_supported(cfg: TTLConfig) -> None:
     """Raise NotImplementedError for what this port does not cover yet,
     naming the ROADMAP (Queue 1) item that brings it."""
     unsupported = [
-        (cfg.cocoop, "--cocoop", 11),
         (bool(cfg.filter_plpd), "--filter_plpd", 13),
         (len(cfg.aug_ops) > 0, "--aug_list (AugMix)", 13),
         (cfg.checkpoint_path is not None, "--checkpoint_path", 14),
@@ -334,5 +334,23 @@ def make_fused_tpt_fn(clip_cfg: CLIPConfig, cfg: TTLConfig):
             views = render_views(canvases, hs, ws, draws,
                                  out_size=cfg.resolution, out_dtype=cd)
         return adapt(params, pl_state, views)
+
+    return fused
+
+
+def make_fused_cocoop_fn(clip_cfg: CLIPConfig, cfg: TTLConfig):
+    """View rendering + CoCoOp ctx adaptation (`--cocoop`): f(params,
+    co_state, canvases, hs, ws, draws) -> CoCoOpResult with a leading
+    sample axis."""
+    from .cocoop import make_cocoop_adapt_fn
+    check_supported(cfg)
+    adapt = make_cocoop_adapt_fn(clip_cfg, cfg)
+    cd = compute_dtype(cfg)
+
+    def fused(params, co_state, canvases, hs, ws, draws: Draws):
+        with torch.no_grad():
+            views = render_views(canvases, hs, ws, draws,
+                                 out_size=cfg.resolution, out_dtype=cd)
+        return adapt(params, co_state, views)
 
     return fused

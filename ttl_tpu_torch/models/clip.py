@@ -19,6 +19,12 @@ routes both towers run K3 or K4 unpadded.
 With `--prefix_quant int8` the vision parameters carry an int8 copy of the
 frozen prefix under `prefix_q` (`ops/quant.py`), and `vision_prefix` runs
 those layers through `encoder_layer_q`, whose six linears are K5.
+
+With `fused_ln=True` (the frozen vision tower of the CoCoOp step, under
+`torch.no_grad()`), a layer's two layernorms fold into the linears behind
+them: q, k, v and fc1 each come from one `ops.ln_matmul.ln_matmul` call, K6
+on the card, four launches a layer. It is forward only: LoRA adapters or an
+input that a gradient would flow through raise.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..ops.attention import attention, fused_mode
+from ..ops.ln_matmul import ln_matmul
 from ..ops.quant import linear_q
 
 Params = Dict[str, Any]
@@ -120,12 +127,41 @@ def _lora_delta(h: torch.Tensor, ad: Params, scale: float) -> torch.Tensor:
     return (scale * torch.matmul(t, b)).reshape(h.shape)
 
 
+def _ln_linear(x: torch.Tensor, ln: Params, lin: Params,
+               eps: float) -> torch.Tensor:
+    """linear(layer_norm(x)) as one fused call (K6 on the card)."""
+    return ln_matmul(x, ln["scale"], ln["bias"], lin["w"], lin["b"], eps)
+
+
+def _encoder_layer_fused_ln(p: Params, x: torch.Tensor, *, heads: int,
+                            eps: float, causal: bool,
+                            seq_len: Optional[int]) -> torch.Tensor:
+    """encoder_layer for a frozen layer, each layernorm folded into the
+    linears that read it."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError("fused_ln is forward only: run the layer under "
+                         "torch.no_grad() or on an input that needs no "
+                         "gradient")
+    q, k, v = (_ln_linear(x, p["ln1"], p["attn"][name], eps)
+               for name in "qkv")
+    x = x + linear(attention(q, k, v, heads, causal, seq_len), p["attn"]["o"])
+    fc1 = _ln_linear(x, p["ln2"], p["mlp"]["fc1"], eps)
+    return x + linear(quick_gelu(fc1), p["mlp"]["fc2"])
+
+
 def encoder_layer(p: Params, x: torch.Tensor, *, heads: int, eps: float,
                   causal: bool, lora: Optional[Params] = None,
-                  lora_scale: float = 2.0,
-                  seq_len: Optional[int] = None) -> torch.Tensor:
+                  lora_scale: float = 2.0, seq_len: Optional[int] = None,
+                  fused_ln: bool = False) -> torch.Tensor:
     """Pre-LN transformer block with a QuickGELU MLP. `lora` adds rank-r
-    updates to the q and v projections."""
+    updates to the q and v projections. `fused_ln` takes q, k, v and fc1
+    from `ln_matmul` (frozen layers only: no LoRA, no gradient)."""
+    if fused_ln:
+        if lora is not None:
+            raise ValueError("fused_ln does not take LoRA adapters: the "
+                             "fused layernorm + linear has no backward")
+        return _encoder_layer_fused_ln(p, x, heads=heads, eps=eps,
+                                       causal=causal, seq_len=seq_len)
     h = layer_norm(x, p["ln1"], eps)
     q = linear(h, p["attn"]["q"])
     k = linear(h, p["attn"]["k"])
@@ -156,14 +192,16 @@ def encoder_layer_q(pq: Params, x: torch.Tensor, *, heads: int, eps: float,
 
 def _run_layers(stacked: Params, x: torch.Tensor, lo: int, hi: int, *,
                 heads: int, eps: float, causal: bool, remat: bool = False,
-                seq_len: Optional[int] = None) -> torch.Tensor:
+                seq_len: Optional[int] = None,
+                fused_ln: bool = False) -> torch.Tensor:
     """Layers [lo, hi) without adapters. With `remat`, where a gradient
     flows, each layer is checkpointed: only its input is saved and its
     internals (the attention inputs and probabilities among them) are
     recomputed in the backward. Exact either way."""
     def layer(i, h):
         return encoder_layer(layer_at(stacked, i), h, heads=heads, eps=eps,
-                             causal=causal, seq_len=seq_len)
+                             causal=causal, seq_len=seq_len,
+                             fused_ln=fused_ln)
 
     remat = remat and torch.is_grad_enabled() and x.requires_grad
     for i in range(lo, hi):
@@ -190,11 +228,13 @@ def pad_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, Optional[int]]:
 
 
 def vision_prefix(p: Params, images: torch.Tensor, cfg: VisionConfig, *,
-                  upto: int, compute_dtype=torch.bfloat16) -> torch.Tensor:
+                  upto: int, compute_dtype=torch.bfloat16,
+                  fused_ln: bool = False) -> torch.Tensor:
     """Patchify + embed + frozen layers [0, upto) -> hidden [B, S_pad, D].
     With an int8 copy under p["prefix_q"], its first min(upto, n_q) layers
     run int8 and the fp layers finish the range (none when the whole tower
-    is quantised and its fp stack dropped)."""
+    is quantised and its fp stack dropped). `fused_ln` applies to the fp
+    layers; the int8 layers keep their own linears."""
     b = images.shape[0]
     g, pt = cfg.grid, cfg.patch
     x = images.to(compute_dtype)
@@ -213,7 +253,8 @@ def vision_prefix(p: Params, images: torch.Tensor, cfg: VisionConfig, *,
             x = encoder_layer_q(layer_at(qp, i), x, heads=cfg.heads,
                                 eps=cfg.ln_eps, seq_len=seq_len)
     return _run_layers(p["layers"], x, nq, upto, heads=cfg.heads,
-                       eps=cfg.ln_eps, causal=False, seq_len=seq_len)
+                       eps=cfg.ln_eps, causal=False, seq_len=seq_len,
+                       fused_ln=fused_ln)
 
 
 def vision_from_hidden(p: Params, hidden: torch.Tensor, cfg: VisionConfig, *,
@@ -246,11 +287,16 @@ def vision_features(p: Params, images: torch.Tensor, cfg: VisionConfig, *,
                     adapters: Optional[Params] = None,
                     adapter_window: Tuple[int, int] = (9, 11),
                     lora_scale: float = 2.0,
-                    compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Images [B, 3, H, W] (CLIP-normalized) -> features [B, proj_dim] f32."""
+                    compute_dtype=torch.bfloat16,
+                    fused_ln: bool = False) -> torch.Tensor:
+    """Images [B, 3, H, W] (CLIP-normalized) -> features [B, proj_dim] f32.
+    `fused_ln` is for the frozen tower: with adapters it raises."""
+    if fused_ln and adapters is not None:
+        raise ValueError("fused_ln does not take LoRA adapters: the fused "
+                         "layernorm + linear has no backward")
     lo = adapter_window[0] if adapters is not None else cfg.layers
     hidden = vision_prefix(p, images, cfg, upto=lo,
-                           compute_dtype=compute_dtype)
+                           compute_dtype=compute_dtype, fused_ln=fused_ln)
     if adapters is None:
         pooled = layer_norm(hidden[:, 0], p["ln_post"], cfg.ln_eps)
         return mm_f32(pooled, p["proj"])
@@ -260,13 +306,15 @@ def vision_features(p: Params, images: torch.Tensor, cfg: VisionConfig, *,
 
 
 def encode_image(p: Params, images: torch.Tensor, vision_cfg, *,
-                 compute_dtype=torch.bfloat16) -> torch.Tensor:
+                 compute_dtype=torch.bfloat16,
+                 fused_ln: bool = False) -> torch.Tensor:
     """Backbone dispatcher, frozen features: the ViT tower; the ResNet
     towers raise until they are ported."""
     if not isinstance(vision_cfg, VisionConfig):
         raise NotImplementedError("the ResNet vision towers are not ported "
                                   "yet (ROADMAP Queue 1, item 14)")
-    return vision_features(p, images, vision_cfg, compute_dtype=compute_dtype)
+    return vision_features(p, images, vision_cfg, compute_dtype=compute_dtype,
+                           fused_ln=fused_ln)
 
 
 def _pool_eot(x: torch.Tensor, tokens: torch.Tensor, p: Params,

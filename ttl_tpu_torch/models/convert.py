@@ -84,6 +84,22 @@ def prompt_learner_from_numpy(state: Any, device):
         cls_init=leaf("cls_init"))
 
 
+def cocoop_state_from_numpy(state: Any, device):
+    """The JAX package's `CoCoOpState` (any object with its fields, array
+    leaves readable by numpy) -> the port's dataclass, leaf by leaf: float
+    leaves keep their dtype, the token table becomes int64."""
+    from ..adapt.cocoop import CoCoOpState
+
+    def leaf(name, dtype=None):
+        return tensor_from_numpy(getattr(state, name), device, dtype)
+
+    return CoCoOpState(
+        ctx=leaf("ctx"), meta_w1=leaf("meta_w1"), meta_b1=leaf("meta_b1"),
+        meta_w2=leaf("meta_w2"), meta_b2=leaf("meta_b2"),
+        prefix=leaf("prefix"), suffix=leaf("suffix"),
+        tokenized=leaf("tokenized", torch.int64), n_ctx=int(state.n_ctx))
+
+
 def params_to_numpy(tree: Any) -> Any:
     """The port's parameters -> numpy (bfloat16 leaves as float32)."""
     if isinstance(tree, dict):

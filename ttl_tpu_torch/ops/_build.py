@@ -104,6 +104,10 @@ def library() -> ctypes.CDLL:
         bwd.restype = i
     lib.ttl_quant_matmul.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.ttl_quant_matmul.restype = i
+    lib.ttl_ln_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
+    lib.ttl_ln_matmul.restype = i
+    lib.ttl_ln_matmul_max_k.argtypes = [i]
+    lib.ttl_ln_matmul_max_k.restype = i
     lib.ttl_cuda_error_string.argtypes = [i]
     lib.ttl_cuda_error_string.restype = ctypes.c_char_p
     return lib

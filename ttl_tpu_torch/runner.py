@@ -3,14 +3,16 @@
 Counterpart of `load_model`, `make_adapters0`, `evaluate_dataset` and `run`
 in `ttl_tpu/runner.py`, for the LoRA modes (`--lora_encoder image|text`,
 with the DeYO objective or, `deyo_selection=False`, the TPT one), prompt
-tuning (`--lora_encoder prompt`) and zero-shot (`--tta_steps 0`), with the
-single-template or the ensemble (`--ensemble`) classifier and an optional
-int8 frozen prefix (`--prefix_quant int8`). Per dataset it builds the text
-side once (the frozen classifier, the class-prompt token table, or the
-prompt learner), streams samples through `SampleLoader`, and runs one fused
-step per batch of `sample_batch` samples: views rendered on the device, the
-episodic adaptation and the adapted clean-view logits (or the center view's
-zero-shot logits), and top-1/top-5 counts on the device.
+tuning (`--lora_encoder prompt`), CoCoOp (`--cocoop`) and zero-shot
+(`--tta_steps 0`), with the single-template or the ensemble (`--ensemble`)
+classifier, an optional int8 frozen prefix (`--prefix_quant int8`) and an
+optional CoOp/CoCoOp prompt checkpoint (`--load`). Per dataset it builds
+the text side once (the frozen classifier, the class-prompt token table,
+the prompt learner or the CoCoOp state), streams samples through
+`SampleLoader`, and runs one fused step per batch of `sample_batch` samples:
+views rendered on the device, the episodic adaptation and the adapted
+clean-view logits (or the center view's zero-shot logits), and top-1/top-5
+counts on the device.
 
 The loader's prefetch thread makes each batch's random view draws and, for
 a CUDA device, copies the batch to the device from pinned memory on a
@@ -27,8 +29,10 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .adapt.ttl import (check_supported, compute_dtype, make_fused_tpt_fn,
-                        make_fused_ttl_fn, make_fused_zeroshot_fn)
+from .adapt.cocoop import init_cocoop
+from .adapt.ttl import (check_supported, compute_dtype, make_fused_cocoop_fn,
+                        make_fused_tpt_fn, make_fused_ttl_fn,
+                        make_fused_zeroshot_fn)
 from .config import TTLConfig, resolve_layer_range
 from .data.classnames import resolve_classnames
 from .data.registry import build_dataset, dataset_exists, expected_subdir
@@ -43,6 +47,8 @@ from .ops.attention import fused_mode
 from .ops.lora import adapter_param_count, init_adapters
 from .ops.quant import attach_prefix_quant, quant_prefix_len
 from .parallel.eval import topk_counts
+from .utils.checkpoint import (apply_cocoop_ckpt, apply_prompt_ckpt,
+                               load_prompt_state_dict)
 from .utils.meters import AverageMeter, ProgressMeter, Summary
 
 
@@ -94,7 +100,8 @@ class DeviceBatch(NamedTuple):
 
 def _make_upload(cfg: TTLConfig, device, batch_size: int):
     """The loader transform: SampleBatch -> DeviceBatch, run in the loader's
-    prefetch thread. Zero-shot draws no random views."""
+    prefetch thread. Zero-shot draws no random views; CoCoOp renders its
+    views whatever `tta_steps` is."""
     copy_stream = (torch.cuda.Stream(device) if device.type == "cuda"
                    else None)
 
@@ -103,7 +110,7 @@ def _make_upload(cfg: TTLConfig, device, batch_size: int):
             torch.from_numpy(b.canvases), torch.from_numpy(b.heights),
             torch.from_numpy(b.widths),
             (draw_batch(cfg.seed, b.indices, cfg.batch_size)
-             if cfg.tta_steps > 0 else {}),
+             if cfg.tta_steps > 0 or cfg.cocoop else {}),
             torch.from_numpy(b.labels.astype(np.int64)),
             torch.from_numpy(np.arange(batch_size) < batch_size - b.pad),
             None)
@@ -138,11 +145,25 @@ def text_classifier(set_id: str, cfg: TTLConfig, clip_cfg, params, *,
                                  compute_dtype=compute_dtype(cfg))
 
 
-def prompt_learner(set_id: str, cfg: TTLConfig, params):
+def prompt_learner(set_id: str, cfg: TTLConfig, params, prompt_ckpt=None):
     """The prompt learner of a set's classes, on the parameters' device,
-    from the f32 token embedding table."""
-    return init_prompt_learner(params["text"]["token_embed"].float(),
-                               resolve_classnames(set_id), cfg.ctx_init)
+    from the f32 token embedding table; a CoOp checkpoint's ctx on top."""
+    pl_state = init_prompt_learner(params["text"]["token_embed"].float(),
+                                   resolve_classnames(set_id), cfg.ctx_init)
+    return apply_prompt_ckpt(pl_state, prompt_ckpt) if prompt_ckpt \
+        else pl_state
+
+
+def cocoop_state(set_id: str, cfg: TTLConfig, clip_cfg, params,
+                 prompt_ckpt=None):
+    """The CoCoOp state of a set's classes, on the parameters' device: the
+    meta-net drawn from cfg.seed, a CoCoOp checkpoint's ctx and meta-net on
+    top."""
+    state = init_cocoop(params["text"]["token_embed"].float(),
+                        resolve_classnames(set_id),
+                        clip_cfg.vision.proj_dim,
+                        torch.Generator().manual_seed(cfg.seed), cfg.ctx_init)
+    return apply_cocoop_ckpt(state, prompt_ckpt) if prompt_ckpt else state
 
 
 @torch.no_grad()
@@ -157,8 +178,10 @@ def prompt_classifier(pl_state, cfg: TTLConfig, clip_cfg,
 
 def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
                      adapters0, *, device, dataset=None,
-                     max_samples: Optional[int] = None) -> List[float]:
-    """One dataset: returns [top1, top5] percentages."""
+                     max_samples: Optional[int] = None,
+                     prompt_ckpt: Optional[dict] = None) -> List[float]:
+    """One dataset: returns [top1, top5] percentages. `prompt_ckpt` is the
+    state dict of a `--load` checkpoint, for the modes that read it."""
     if cfg.ensemble and (cfg.cocoop or cfg.lora_encoder != "image"):
         raise ValueError(
             "--ensemble replaces the frozen single-template text classifier "
@@ -177,8 +200,17 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
         canvas=canvas, bucket_canvas=cfg.canvas == 0,
         max_samples=max_samples, workers=cfg.workers,
         transform=_make_upload(cfg, device, cfg.sample_batch))
-    if cfg.lora_encoder == "prompt" and cfg.tta_steps > 0:
-        pl_state = prompt_learner(set_id, cfg, params)
+    if cfg.cocoop:
+        # whatever tta_steps is: the reference's final inference ignores the
+        # adapted ctx, so `logits` is the conditioned, unadapted prediction
+        co_state = cocoop_state(set_id, cfg, clip_cfg, params, prompt_ckpt)
+        cocoop = make_fused_cocoop_fn(clip_cfg, cfg)
+
+        def step_fn(b: DeviceBatch) -> torch.Tensor:
+            return cocoop(params, co_state, b.canvases, b.hs, b.ws,
+                          b.draws).logits
+    elif cfg.lora_encoder == "prompt" and cfg.tta_steps > 0:
+        pl_state = prompt_learner(set_id, cfg, params, prompt_ckpt)
         tune = make_fused_tpt_fn(clip_cfg, cfg)
 
         def step_fn(b: DeviceBatch) -> torch.Tensor:
@@ -205,7 +237,8 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
         # the prompt learner's own unadapted ctx prompts
         if cfg.lora_encoder == "prompt":
             text_cls = prompt_classifier(
-                prompt_learner(set_id, cfg, params), cfg, clip_cfg, params)
+                prompt_learner(set_id, cfg, params, prompt_ckpt), cfg,
+                clip_cfg, params)
         else:
             text_cls = text_classifier(set_id, cfg, clip_cfg, params,
                                        device=device)
@@ -272,11 +305,10 @@ def run(cfg: TTLConfig, *, device, datasets: Optional[Dict] = None,
     extra = (f" ({adapter_param_count(adapters0):,} LoRA params/sample)"
              if adapters0 is not None else "")
     print(f"=> Model created: visual backbone {cfg.arch}{extra}", flush=True)
+    prompt_ckpt = None
     if cfg.load and (cfg.cocoop or cfg.lora_encoder == "prompt"):
-        raise NotImplementedError(
-            "--load with a CoOp/CoCoOp prompt checkpoint is not ported to "
-            "ttl_tpu_torch yet (ROADMAP Queue 1, item 11)")
-    if cfg.load:
+        prompt_ckpt = load_prompt_state_dict(cfg.load)
+    elif cfg.load:
         print(f"WARNING: --load {cfg.load} is a CoOp/CoCoOp prompt "
               "checkpoint and has no effect in the LoRA modes; ignoring it, "
               "as the reference does", flush=True)
@@ -294,7 +326,7 @@ def run(cfg: TTLConfig, *, device, datasets: Optional[Dict] = None,
                     "as the positional DATA argument or --data")
         results[set_id] = evaluate_dataset(
             set_id, cfg, clip_cfg, params, adapters0, device=device,
-            dataset=ds, max_samples=max_samples)
+            dataset=ds, max_samples=max_samples, prompt_ckpt=prompt_ckpt)
         print("=> Acc. on testset [{}]: @1 {:.2f}/ @5 {:.2f}".format(
             set_id, results[set_id][0], results[set_id][1]), flush=True)
 
