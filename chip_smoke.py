@@ -38,7 +38,12 @@ per source, side by side), then:
    against the plain version and autograd through it, at the vision shape
    [512, 12, 197, 64] bf16 and the causal text shape [1600, 8, 32, 64] bf16
    (and one f32 case each), with `scaled_dot_product_attention` on the same
-   tensors and mask timed beside it as a yardstick (no path uses it);
+   tensors and mask timed beside it as a yardstick (no path uses it). The
+   bf16 shapes must report the tensor-core route and the f32 ones the FMA
+   route, and a second backward on the same inputs must give the same bits.
+   Then odd geometries on the tensor-core route (one token; 21 tokens
+   causal; 37 and 577 tokens; head dims 16 and 32), the 577-token one with
+   a score of about 80 late in a row, so that the running max moves;
 12. K4, the heads attention, likewise;
 13. the K1/K2 yardstick: `scaled_dot_product_attention` forward and backward
    at [512, 208, 768] bf16 with the 197-key mask;
@@ -51,7 +56,8 @@ per source, side by side), then:
 16. `deyo_selection=False` (TPT on LoRA) on the default route, a short run:
    18 K1 and 3 K2 launches per batch;
 17. card against CPU for one sample of phases 14 and 15, the CPU on the
-   plain versions under the same route;
+   plain versions under the same route; beside each, as a yardstick held to
+   nothing, the same sample through the einsum route on the card;
 18. K6, layernorm folded into the linear behind it, against
    `ln_matmul_plain` on the card at the CoCoOp path's shapes
    ([106496, 768] x [768, 768] and x [768, 3072] bf16), the text width, one
@@ -82,6 +88,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -138,6 +145,12 @@ BHSD_SHAPES = [(512, 12, 197, 64, False, torch.bfloat16),
                (1600, 8, 32, 64, True, torch.bfloat16),
                (64, 12, 197, 64, False, torch.float32),
                (1600, 8, 32, 64, True, torch.float32)]
+# Odd geometries for the tensor-core route of K3/K4, all bf16: one token, a
+# ragged causal head, a ragged tile, ViT-L/14@336px's 577 tokens (ten key
+# stages), and the head dims 16 and 32: (B, H, S, D, causal)
+BHSD_ODD = [(3, 4, 1, 64, False), (3, 4, 21, 64, True), (2, 4, 37, 64, False),
+            (1, 16, 577, 64, False), (2, 4, 70, 16, True),
+            (2, 4, 70, 32, False)]
 # K6 at the CoCoOp path's shapes (8 samples x 64 views x 208 tokens), the text
 # tower's width (1600 prompts x 32 tokens), one f32 shape, and a ragged M
 # (prime, so a multiple of no row tile) with rows of zeros: (M, K, N, dtype)
@@ -287,38 +300,72 @@ def phase_bshd_yardstick() -> tuple:
     return fwd, bwd
 
 
+def bhsd_inputs(b, h, s, d, dtype, large_score: bool = False):
+    """q, k, v, do for K3/K4 from a seeded generator. With `large_score`,
+    key s - 77 is ten times query row 5, so that row's score there is about
+    10 * 64 / 8 = 80 and every row's is large, late in the row."""
+    g = torch.Generator().manual_seed(SEED + s)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=g) for _ in range(4))
+    if large_score:
+        k[:, :, s - 77] = 10.0 * q[:, :, 5]
+    return [t.to("cuda", dtype) for t in (q, k, v, do)]
+
+
+def check_bhsd(fa, route: str, label: str, shape: str, q, k, v, do,
+               causal: bool) -> tuple:
+    """One K3/K4 geometry against the plain version and autograd through
+    it, within FWD_BOUND and BWD_BOUND_REL; the backward run twice must give
+    the same bits. Returns (forward error, worst backward error, the plain
+    output and its leaves for timing)."""
+    forward = getattr(fa, f"{route}_forward_cuda")
+    backward = getattr(fa, f"{route}_backward_cuda")
+    dtype = q.dtype
+    want_route = ("tensor cores" if dtype == torch.bfloat16
+                  else "key-tiled FMA")
+    got_route = fa.bhsd_kernel_route(dtype, q.shape[-1])
+    if got_route != want_route:
+        raise AssertionError(f"{label} at {shape}: the {got_route} route, "
+                             f"not {want_route}")
+    out = forward(q, k, v, causal)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = fa.attention_bhsd_plain(*leaves, causal)
+    want = torch.autograd.grad(ref, leaves, do, retain_graph=True)
+    got = backward(q, k, v, do, causal)
+    again = backward(q, k, v, do, causal)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    limit = FWD_BOUND[dtype] * max(1.0, ref.float().abs().max().item())
+    if not torch.isfinite(out).all() or not err <= limit:
+        raise AssertionError(f"{label} forward at {shape} disagrees with "
+                             f"its plain version: {err} > {limit}")
+    worst = 0.0
+    for name, gk, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
+        e = (gk.float() - w.float()).abs().max().item()
+        lim = BWD_BOUND_REL[dtype] * w.float().abs().max().item()
+        if not torch.isfinite(gk).all() or not e <= lim:
+            raise AssertionError(f"{label} backward {name} at {shape} "
+                                 f"disagrees with autograd through the "
+                                 f"plain version: {e} > {lim}")
+        if not torch.equal(gk, g2):
+            raise AssertionError(f"{label} backward {name} at {shape} "
+                                 f"differs between two runs")
+        worst = max(worst, e)
+    return err, worst, ref, leaves
+
+
 def phase_bhsd(fa, route: str, label: str) -> dict:
     """K3 (`route` per_head) or K4 (heads), forward and backward, against
-    the plain version and autograd through it at BHSD_SHAPES. Returns the
-    forward and the backward results at each shape."""
+    the plain version and autograd through it at BHSD_SHAPES, then at
+    BHSD_ODD. Returns the forward and the backward results at each of
+    BHSD_SHAPES."""
     forward = getattr(fa, f"{route}_forward_cuda")
     backward = getattr(fa, f"{route}_backward_cuda")
     results = {}
     for b, h, s, d, causal, dtype in BHSD_SHAPES:
-        g = torch.Generator().manual_seed(SEED + s)
-        q, k, v, do = (torch.randn(b, h, s, d, generator=g).to("cuda", dtype)
-                       for _ in range(4))
+        q, k, v, do = bhsd_inputs(b, h, s, d, dtype)
         shape = f"[{b}, {h}, {s}, {d}] {dtype}, causal={causal}"
-        out = forward(q, k, v, causal)
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        ref = fa.attention_bhsd_plain(*leaves, causal)
-        want = torch.autograd.grad(ref, leaves, do, retain_graph=True)
-        got = backward(q, k, v, do, causal)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        limit = FWD_BOUND[dtype] * max(1.0, ref.float().abs().max().item())
-        if not torch.isfinite(out).all() or not err <= limit:
-            raise AssertionError(f"{label} forward at {shape} disagrees with "
-                                 f"its plain version: {err} > {limit}")
-        worst = 0.0
-        for name, gk, w in zip(("dq", "dk", "dv"), got, want):
-            e = (gk.float() - w.float()).abs().max().item()
-            lim = BWD_BOUND_REL[dtype] * w.float().abs().max().item()
-            if not torch.isfinite(gk).all() or not e <= lim:
-                raise AssertionError(f"{label} backward {name} at {shape} "
-                                     f"disagrees with autograd through the "
-                                     f"plain version: {e} > {lim}")
-            worst = max(worst, e)
+        err, worst, ref, leaves = check_bhsd(fa, route, label, shape, q, k, v,
+                                             do, causal)
         lib_fwd, lib_bwd = sdpa_ms(q, k, v, do, causal=causal)
         fwd = {"max_abs_err": err,
                "ms": median_ms(lambda: forward(q, k, v, causal)),
@@ -333,13 +380,30 @@ def phase_bhsd(fa, route: str, label: str) -> dict:
                **attention_bound(7, 10, b, h, s, d, dtype, causal),
                "library_ms": lib_bwd}
         for kind, r in (("forward", fwd), ("backward", bwd)):
-            log(f"{label} {kind} {shape}: max_abs_err {r['max_abs_err']:.3e},"
-                f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-                f"scaled_dot_product_attention {r['library_ms']:.4f} ms")
+            log(f"{label} {kind} {shape} "
+                f"({fa.bhsd_kernel_route(dtype, d)}): max_abs_err "
+                f"{r['max_abs_err']:.3e}, kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), scaled_dot_product_attention "
+                f"{r['library_ms']:.4f} ms")
         results[shape] = {"fwd": fwd, "bwd": bwd}
-        del q, k, v, do, out, ref, want, got, leaves
+        del q, k, v, do, ref, leaves
+    for b, h, s, d, causal in BHSD_ODD:
+        q, k, v, do = bhsd_inputs(b, h, s, d, torch.bfloat16,
+                                  large_score=s == 577)
+        shape = f"[{b}, {h}, {s}, {d}] bf16, causal={causal}"
+        err, worst, ref, _ = check_bhsd(fa, route, label, shape, q, k, v, do,
+                                        causal)
+        log(f"{label} {shape} (tensor cores): forward max_abs_err {err:.3e},"
+            f" backward {worst:.3e}, two backward runs bit for bit, largest "
+            f"|score| {score_range(q, k):.1f}")
     return results
+
+
+def score_range(q, k) -> float:
+    d = q.shape[-1]
+    return (torch.matmul(q.float(), k.float().transpose(-1, -2)).abs().max()
+            / d ** 0.5).item()
 
 
 def phase_forward(fa) -> dict:
@@ -787,6 +851,17 @@ def phase_card_vs_cpu(cfg, name: str):
     return card, cpu
 
 
+def log_einsum_yardstick(fa, cfg, name: str, cpu) -> None:
+    """The same sample on the card through the einsum route (no hand-written
+    attention kernel) against the CPU logits of `phase_card_vs_cpu`: how far
+    two correct runs of this path lie apart. Printed, held to nothing."""
+    with attention_route(fa, "off"):
+        card = sample_step(cfg)(torch.device("cuda"))
+    log(f"card vs CPU, {name}, yardstick: the einsum route on the card "
+        f"differs from the same CPU logits by "
+        f"{(card - cpu).abs().max().item():.3e}")
+
+
 def phase_cocoop_card_vs_cpu(cfg) -> None:
     """CoCoOp, card against CPU within CARD_CPU_BOUND, for `logits` (the
     clean view under its own unadapted ctx: the runner's result) and for
@@ -885,6 +960,11 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    log("ptxas on the tensor-core attention kernels <head dim, warps, rows "
+        "a stage, stages>:")
+    for name, used in sorted(_build.kernel_resources("mma_").items()):
+        log("  " + re.sub(r".*(mma_\w+?)ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E.*",
+                          r"\1<\2, \3, \4, \5>", name) + ": " + used)
 
     fwd = phase_forward(fa)
     bwd = phase_backward(fa)
@@ -913,11 +993,14 @@ def main() -> int:
     with attention_route(fa, "per_head"):
         text_path = phase_path(fa, tq, "text-LoRA, per_head route", text_cfg,
                                {"K3 fwd": 36, "K3 bwd": 3})
-        phase_card_vs_cpu(text_cfg, "text-LoRA, per_head route")
+        _, text_cpu = phase_card_vs_cpu(text_cfg, "text-LoRA, per_head route")
     with attention_route(fa, "heads"):
         prompt_path = phase_path(fa, tq, "prompt tuning, heads route",
                                  prompt_cfg, {"K4 fwd": 60, "K4 bwd": 12})
-        phase_card_vs_cpu(prompt_cfg, "prompt tuning, heads route")
+        _, prompt_cpu = phase_card_vs_cpu(prompt_cfg,
+                                          "prompt tuning, heads route")
+    log_einsum_yardstick(fa, text_cfg, "text-LoRA", text_cpu)
+    log_einsum_yardstick(fa, prompt_cfg, "prompt tuning", prompt_cpu)
     tpt_lora = phase_path(
         fa, tq, "TPT on LoRA",
         config("--deyo_selection", "False"),

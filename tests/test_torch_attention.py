@@ -414,3 +414,327 @@ def test_bhsd_autograd_functions_count_launches(cuda_device, mode, wrapper):
     fn = getattr(tfa, wrapper)
     assert (fn.fwd_launches, fn.bwd_launches) == (1, 1)
     assert tfa.attention_bshd.fwd_launches == 0
+
+
+# ------------------- the tensor-core bodies of K3/K4, emulated tile by tile
+#
+# `csrc/attention_mma.cuh` cannot run here. Its arithmetic can: the functions
+# below repeat it in plain PyTorch, tile by tile as the kernels walk a head.
+# 16 query rows (or keys) a warp, the other side in stages of 32 or 64 rows
+# (`_mma_tiles`);
+# the forward's online softmax against the running max with P rounded to
+# bf16 before P.V (normalised first where the block has one stage); the
+# backward's rows sweep (e, dP shifted by its value at
+# key 0, A and B rescaled by alpha, dQ = scale (A - rs B) / l) and keys sweep
+# (P and dS from the rows' statistics), whose f32 factors enter each product
+# as two bf16 terms hi + lo; with the causal mask, stages and 16-row blocks
+# wholly on the masked side are skipped. Products of bf16 values are exact in
+# f32, as on the tensor cores. Every output is rounded to bf16 once.
+
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _split_matmul(x, y):
+    """x @ y with x entering as two bf16 terms."""
+    hi = _bf(x)
+    return hi @ y + _bf(x - hi) @ y
+
+
+def _mma_tiles(s, backward=False):
+    """(rows a block, rows a stage) the launcher picks for S tokens."""
+    if s <= 32:
+        return 32, 32
+    return 64, 32 if backward else 64
+
+
+def _masked_scores(qb, kb, rows, keys, causal):
+    x = qb @ kb.transpose(-1, -2) * (1.0 / qb.shape[-1] ** 0.5)
+    if causal:
+        x = torch.where(keys[None, :] <= rows[:, None], x,
+                        torch.full_like(x, tfa.MASK_VALUE))
+    return x
+
+
+def emulate_mma_forward(q, k, v, causal, visited=None):
+    """[B, H, S, D] bf16 -> bf16, as `mma_fwd_kernel` computes it. `visited`
+    collects the (first row, first key) of every (warp, stage) multiplied."""
+    s = q.shape[-2]
+    block, kt = _mma_tiles(s)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty_like(qf)
+    for r0 in range(0, s, 16):
+        rows = torch.arange(r0, min(r0 + 16, s))
+        kend = min(s, r0 + 16) if causal else s
+        # stages of the warp's block: with one, P is normalised, then rounded
+        block_end = min(s, r0 // block * block + block) if causal else s
+        one_stage = block_end <= kt
+        m = torch.full(qf.shape[:2] + (len(rows), 1), -float("inf"))
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qf[:, :, rows])
+        for k0 in range(0, kend, kt):
+            keys = torch.arange(k0, min(k0 + kt, s))
+            if visited is not None:
+                visited.append((r0, k0))
+            x = _masked_scores(qf[:, :, rows], kf[:, :, keys], rows, keys,
+                               causal)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(x - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            if one_stage:
+                p = p * (1.0 / l)
+            acc = acc * alpha + _bf(p) @ vf[:, :, keys]
+            m = m_new
+        out[:, :, rows] = acc if one_stage else acc * (1.0 / l)
+    return out.to(torch.bfloat16)
+
+
+def emulate_mma_backward(q, k, v, do, causal):
+    """(dq, dk, dv) in bf16, as `mma_bwd_rows_kernel` and
+    `mma_bwd_keys_kernel` compute them."""
+    s, d = q.shape[-2:]
+    scale = 1.0 / d ** 0.5
+    _, kt = _mma_tiles(s, backward=True)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dq, dk, dv = (torch.empty_like(qf) for _ in range(3))
+    st_m, st_l, st_rs = (torch.empty(qf.shape[:3] + (1,)) for _ in range(3))
+    for r0 in range(0, s, 16):                       # the rows kernel
+        rows = torch.arange(r0, min(r0 + 16, s))
+        kend = min(s, r0 + 16) if causal else s
+        qb, dob = qf[:, :, rows], dof[:, :, rows]
+        m = torch.full(qf.shape[:2] + (len(rows), 1), -float("inf"))
+        l, r = torch.zeros_like(m), torch.zeros_like(m)
+        acc_a, acc_b = torch.zeros_like(qb), torch.zeros_like(qb)
+        shift = dob @ vf[:, :, :1].transpose(-1, -2)   # dP at key 0
+        for k0 in range(0, kend, kt):
+            keys = torch.arange(k0, min(k0 + kt, s))
+            x = _masked_scores(qb, kf[:, :, keys], rows, keys, causal)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            e = torch.exp(x - m_new)
+            ge = e * (dob @ vf[:, :, keys].transpose(-1, -2) - shift)
+            l = l * alpha + e.sum(-1, keepdim=True)
+            r = r * alpha + ge.sum(-1, keepdim=True)
+            acc_a = acc_a * alpha + _split_matmul(ge, kf[:, :, keys])
+            acc_b = acc_b * alpha + _split_matmul(e, kf[:, :, keys])
+            m = m_new
+        rs = r / l
+        dq[:, :, rows] = (acc_a - rs * acc_b) * (scale / l)
+        st_m[:, :, rows], st_l[:, :, rows] = m, l
+        st_rs[:, :, rows] = rs + shift
+    for k0 in range(0, s, 16):                       # the keys kernel
+        keys = torch.arange(k0, min(k0 + 16, s))
+        kb, vb = kf[:, :, keys], vf[:, :, keys]
+        acc_dk, acc_dv = torch.zeros_like(kb), torch.zeros_like(kb)
+        first = (k0 // kt) * kt if causal else 0
+        for r0 in range(first, s, 16):
+            if causal and r0 + 15 < k0:
+                continue
+            rows = torch.arange(r0, min(r0 + 16, s))
+            qb, dob = qf[:, :, rows], dof[:, :, rows]
+            x = kb @ qb.transpose(-1, -2) * scale       # [keys, rows]
+            m, l, rs = (t[:, :, rows].transpose(-1, -2)
+                        for t in (st_m, st_l, st_rs))
+            p = torch.exp(x - m) * (1.0 / l)
+            if causal:
+                p = torch.where(keys[:, None] <= rows[None, :], p,
+                                torch.zeros_like(p))
+            ds = p * (vb @ dob.transpose(-1, -2) - rs) * scale
+            acc_dv = acc_dv + _split_matmul(p, dob)
+            acc_dk = acc_dk + _split_matmul(ds, qb)
+        dk[:, :, keys], dv[:, :, keys] = acc_dk, acc_dv
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+MMA_CASES = BHSD_CASES + [
+    (2, 2, 1, 16, False),     # one token
+    (1, 2, 70, 32, True),     # two key stages, ragged, causal skips
+]
+# The bounds the card run holds the kernels to (`chip_smoke.py`): a bf16
+# output may round one ulp the other way, so 2 ulps (2^-8 each) of the
+# output's scale; the backward keeps f32-grade factors where autograd through
+# the plain version rounds its bf16 intermediates, so 4 ulps of the largest
+# gradient.
+MMA_FWD_BOUND = 2 * 2.0 ** -8
+MMA_BWD_BOUND = 4 * 2.0 ** -8
+
+
+def _bf16_inputs(b, h, s, d, seed, n):
+    return [torch.from_numpy(t).to(torch.bfloat16)
+            for t in _bhsd_inputs(b, h, s, d, seed=seed, n=n)]
+
+
+@pytest.mark.parametrize("b,h,s,d,causal", MMA_CASES)
+def test_mma_emulation_forward_matches_plain(b, h, s, d, causal):
+    q, k, v = _bf16_inputs(b, h, s, d, 12, 3)
+    want = tfa.attention_bhsd_plain(q, k, v, causal).float()
+    got = emulate_mma_forward(q, k, v, causal).float()
+    assert (got - want).abs().max() <= MMA_FWD_BOUND * max(
+        1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("b,h,s,d,causal", MMA_CASES)
+def test_mma_emulation_backward_matches_plain(b, h, s, d, causal):
+    q, k, v, do = _bf16_inputs(b, h, s, d, 13, 4)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tfa.attention_bhsd_plain(*leaves, causal).backward(do)
+    got = emulate_mma_backward(q, k, v, do, causal)
+    for g, leaf, name in zip(got, leaves, "qkv"):
+        want = leaf.grad.float()
+        err = (g.float() - want).abs().max().item()
+        assert err <= MMA_BWD_BOUND * want.abs().max().item(), f"d{name}"
+
+
+@pytest.mark.parametrize("route", ["per_head", "heads"])
+@pytest.mark.parametrize("b,h,s,d,causal", MMA_CASES)
+def test_mma_emulation_matches_pallas(route, b, h, s, d, causal):
+    """Against K3's and K4's Pallas functions in interpret mode, bf16. The
+    forward: both round P and the output to bf16, against another max, so
+    2 ulps of the output's scale. The backward: both keep P and dS in f32
+    and round each gradient once, so one bf16 ulp (2^-8) of the largest
+    gradient, doubled for sums taken in another order."""
+    q, k, v, do = _bhsd_inputs(b, h, s, d, seed=14, n=4)
+    jq, jk, jv, jdo = (jnp.asarray(t).astype(jnp.bfloat16)
+                       for t in (q, k, v, do))
+    out, vjp = jax.vjp(lambda q, k, v: JAX_BHSD[route](q, k, v, causal),
+                       jq, jk, jv)
+    want = vjp(jdo)
+    tq, tk, tv, tdo = (torch.from_numpy(t).to(torch.bfloat16)
+                       for t in (q, k, v, do))
+    ref = np.asarray(out.astype(jnp.float32))
+    got = emulate_mma_forward(tq, tk, tv, causal).float().numpy()
+    assert np.abs(got - ref).max() <= MMA_FWD_BOUND * max(
+        1.0, np.abs(ref).max())
+    for g, w, name in zip(emulate_mma_backward(tq, tk, tv, tdo, causal),
+                          want, "qkv"):
+        w = np.asarray(w.astype(jnp.float32))
+        err = np.abs(g.float().numpy() - w).max()
+        assert err <= 2 * 2.0 ** -8 * np.abs(w).max(), f"d{name}: {err}"
+
+
+@pytest.mark.parametrize("b,h,s,d,causal", [(2, 3, 32, 64, True),
+                                            (2, 2, 21, 64, True),
+                                            (2, 2, 64, 16, False)])
+def test_mma_emulation_one_stage_rounds_p_as_plain(b, h, s, d, causal):
+    """A head that fits one stage has m and l before P.V, so P is normalised
+    and then rounded, as the plain version rounds it: the two differ only
+    where 1 / l times exp and exp over l round apart, so nearly every output
+    is the same bf16 value and none is further than one bf16 ulp (2^-8 of
+    the output's scale), half the forward's bound."""
+    q, k, v = _bf16_inputs(b, h, s, d, 19, 3)
+    want = tfa.attention_bhsd_plain(q, k, v, causal)
+    got = emulate_mma_forward(q, k, v, causal)
+    assert (got == want).float().mean() > 0.99
+    assert (got.float() - want.float()).abs().max() <= 2.0 ** -8 * max(
+        1.0, want.float().abs().max().item())
+
+
+def test_mma_emulation_one_key_row_has_zero_dq():
+    """softmax over one key is constant: dQ and dK are exactly 0, which the
+    shift of dP by its value at key 0 keeps."""
+    q, k, v, do = _bf16_inputs(2, 2, 1, 16, 15, 4)
+    dq, dk, dv = emulate_mma_backward(q, k, v, do, False)
+    assert not dq.any() and not dk.any()
+    assert torch.equal(dv, do)
+
+
+def test_mma_emulation_skips_masked_stages():
+    """With the causal mask a warp visits only the stages up to its last
+    row; without it, every stage."""
+    q, k, v = _bf16_inputs(1, 1, 150, 16, 16, 3)
+    causal, full = [], []
+    emulate_mma_forward(q, k, v, True, visited=causal)
+    emulate_mma_forward(q, k, v, False, visited=full)
+    assert len(full) == 10 * 3            # 10 warps of 16 rows, 3 stages
+    assert causal == [(r0, k0) for r0 in range(0, 150, 16)
+                      for k0 in range(0, min(150, r0 + 16), 64)]
+    assert len(causal) < len(full)
+
+
+def test_mma_emulation_moves_the_running_max():
+    """A score of about 80 in the second stage: everything summed before
+    it is rescaled by exp(m_old - m_new), and the result still agrees."""
+    q, k, v, do = _bf16_inputs(1, 2, 100, 16, 17, 4)
+    k[:, :, 90] = 20.0 * q[:, :, 5]
+    scores = q.float() @ k.float().transpose(-1, -2) / 4.0
+    assert scores[:, :, 5, 90].min() > 40 and scores[:, :, 5, :64].max() < 20
+    want = tfa.attention_bhsd_plain(q, k, v, False).float()
+    got = emulate_mma_forward(q, k, v, False).float()
+    assert (got - want).abs().max() <= MMA_FWD_BOUND * max(
+        1.0, want.abs().max().item())
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tfa.attention_bhsd_plain(*leaves, False).backward(do)
+    for g, leaf in zip(emulate_mma_backward(q, k, v, do, False), leaves):
+        want = leaf.grad.float()
+        assert (g.float() - want).abs().max() <= MMA_BWD_BOUND * \
+            want.abs().max()
+
+
+def test_bhsd_wrappers_need_16_byte_alignment():
+    """The kernels copy 16 bytes a request: a tensor that starts off a
+    16-byte boundary, or is not contiguous, is refused."""
+    base = torch.zeros(2 * 2 * 16 * 16 + 8, dtype=torch.bfloat16)
+    tfa._check_bhsd_layout(base[:-8].view(2, 2, 16, 16))
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa._check_bhsd_layout(base[1:-7].view(2, 2, 16, 16))
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa._check_bhsd_layout(
+            base[:-8].view(2, 2, 16, 16).transpose(1, 2))
+
+
+# the odd geometries of the tensor-core route (need the card)
+
+BHSD_ODD_CASES = [
+    # (B, H, S, D, causal), all bf16
+    (3, 4, 1, 64, False),
+    (3, 4, 21, 64, True),
+    (2, 4, 37, 64, False),
+    (1, 16, 577, 64, False),
+    (2, 4, 70, 16, True),
+    (2, 4, 70, 32, False),
+    (2, 4, 129, 64, True),    # a last tile of one row
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["per_head", "heads"])
+@pytest.mark.parametrize("b,h,s,d,causal", BHSD_ODD_CASES)
+def test_bhsd_tensor_core_route_odd_geometries(cuda_device, route, b, h, s, d,
+                                               causal):
+    """K3/K4 on the tensor cores against the plain version within the card
+    run's bounds, with a large score late in a row where the head is long
+    enough; the backward twice, bit for bit."""
+    assert tfa.bhsd_kernel_route(torch.bfloat16, d) == "tensor cores"
+    q, k, v, do = _bf16_inputs(b, h, s, d, 18, 4)
+    if s > 80:
+        k[:, :, s - 77] = 10.0 * q[:, :, 5]
+    q, k, v, do = (t.to(cuda_device) for t in (q, k, v, do))
+    out = getattr(tfa, f"{route}_forward_cuda")(q, k, v, causal)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = tfa.attention_bhsd_plain(*leaves, causal)
+    ref.backward(do)
+    backward = getattr(tfa, f"{route}_backward_cuda")
+    grads, again = backward(q, k, v, do, causal), backward(q, k, v, do, causal)
+    torch.cuda.synchronize()
+    ref = ref.detach().float()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max() <= MMA_FWD_BOUND * max(
+        1.0, ref.abs().max().item())
+    for got, got2, leaf in zip(grads, again, leaves):
+        want = leaf.grad.float()
+        assert torch.isfinite(got).all() and torch.equal(got, got2)
+        assert (got.float() - want).abs().max() <= MMA_BWD_BOUND * \
+            want.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 16, "tensor cores"), (torch.bfloat16, 32, "tensor cores"),
+    (torch.bfloat16, 64, "tensor cores"), (torch.float32, 64, "key-tiled FMA"),
+    (torch.float32, 16, "key-tiled FMA")])
+def test_bhsd_kernel_route_per_input(cuda_device, dtype, d, route):
+    """bf16 heads go to the tensor-core bodies, f32 heads to the FMA ones."""
+    assert tfa.bhsd_kernel_route(dtype, d) == route
+    with pytest.raises(ValueError, match="no bhsd attention kernel"):
+        tfa.bhsd_kernel_route(dtype, 48)

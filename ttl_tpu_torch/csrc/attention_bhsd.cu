@@ -19,28 +19,36 @@
 // wrappers is the TPU's, and staged rows past S are zero-filled here.
 //
 // The two routes differ in their grids, as the Pallas ones do:
-//   per_head: one block per (batch*head, tile of 32 query rows); the
-//             backward's second kernel per (batch*head, tile of 32 keys).
+//   per_head: one block per (batch*head, tile of query rows or of keys).
 //   heads:    one block per (batch element, tile), which walks all H heads
 //             of its element inside the kernel, one after the other, with
 //             the same shared memory.
-// The work per head is the key-tiled f32 FMA code of attention_tiled.cuh,
-// shared with the bshd kernels: K and V stream through shared memory 64
-// keys at a time under an online softmax; the backward is a rows kernel
-// (softmax statistics, rowsum(dP*P), dQ) and a keys kernel (dK, dV) with
-// the statistics in a scratch buffer between them. With the causal mask the
-// key tiles past a query tile's last row are skipped. No tensor cores yet:
-// simple and right first.
+// The work per head, by input type (ttl_bhsd_attention_route):
+//   bf16, head dim a multiple of 16 (every one the wrappers take): the
+//       tensor-core kernels of attention_mma.cuh. mma.sync for all five
+//       products, cp.async rings, scores and probabilities in registers;
+//       the backward is a rows kernel (softmax statistics, dQ) and a keys
+//       kernel (dK, dV) with the statistics in a scratch buffer between
+//       them. Under the heads grid the ring of a block runs on from one
+//       head into the next.
+//   f32: the key-tiled f32 FMA code of attention_tiled.cuh, shared with the
+//       bshd kernels (TF32 would lose the f32 contract): K and V stream
+//       through shared memory 64 keys at a time under an online softmax; a
+//       rows kernel and a keys kernel likewise.
+// With the causal mask the key tiles past a query tile's last row are
+// skipped on both routes.
 //
-// C interface (loaded with ctypes): ttl_per_head_attention_fwd / _bwd and
-// ttl_heads_attention_fwd / _bwd. The launches go to the caller's stream;
-// each function returns the cudaError_t of its launches.
+// C interface (loaded with ctypes): ttl_per_head_attention_fwd / _bwd,
+// ttl_heads_attention_fwd / _bwd and ttl_bhsd_attention_route. The launches
+// go to the caller's stream; each launching function returns the cudaError_t
+// of its launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
 
+#include "attention_mma.cuh"
 #include "attention_tiled.cuh"
 
 namespace {
@@ -210,34 +218,43 @@ int launch_bwd(bool heads, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int fwd_for_type(bool heads, const void* q, const void* k, const void* v,
-                 void* o, int B, int H, int D, const Geometry& g,
-                 cudaStream_t st) {
-  switch (D) {
-    case 16: return launch_fwd<T, 16>(heads, q, k, v, o, B, H, g, st);
-    case 32: return launch_fwd<T, 32>(heads, q, k, v, o, B, H, g, st);
-    case 64: return launch_fwd<T, 64>(heads, q, k, v, o, B, H, g, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// Routes, numbered as ttl_bshd_attention_route numbers them.
+enum Route { kRouteTensorCore = 0, kRouteKeyTiled = 2 };
+
+// The rule: the kernels take head dims 16, 32 and 64. All are multiples of
+// the tensor-core products' depth of 16, so every bf16 input goes to the
+// tensor-core bodies; f32 inputs keep the f32 FMA bodies. -1: no kernel.
+int route_of(int dtype, int D) {
+  if (D != 16 && D != 32 && D != 64) return -1;
+  if (dtype == 0) return kRouteKeyTiled;
+  if (dtype == 1) return kRouteTensorCore;
+  return -1;
 }
 
-template <typename T>
-int bwd_for_type(bool heads, const void* q, const void* k, const void* v,
-                 const void* dout, void* dq, void* dk, void* dv, void* stats,
-                 int B, int H, int D, const Geometry& g, cudaStream_t st) {
-  switch (D) {
-    case 16:
-      return launch_bwd<T, 16>(heads, q, k, v, dout, dq, dk, dv, stats, B, H,
-                               g, st);
-    case 32:
-      return launch_bwd<T, 32>(heads, q, k, v, dout, dq, dk, dv, stats, B, H,
-                               g, st);
-    case 64:
-      return launch_bwd<T, 64>(heads, q, k, v, dout, dq, dk, dv, stats, B, H,
-                               g, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// bf16 on the tensor cores: `heads` chooses the grid (a block per head, or
+// a block per batch element that walks its H heads), S the tile heights.
+template <int D>
+int mma_fwd(bool heads, const void* q, const void* k, const void* v, void* o,
+            int B, int H, const Geometry& g, cudaStream_t st) {
+  const HeadLayout hl{H, (size_t)H * g.S * D, (size_t)g.S * D};
+  const int groups = heads ? B : B * H, nh = heads ? H : 1;
+  if (g.S <= kMmaShortMax)
+    return mma_launch_fwd<D, MmaShort>(q, k, v, o, groups, nh, hl, g, st);
+  return mma_launch_fwd<D, MmaLong>(q, k, v, o, groups, nh, hl, g, st);
+}
+
+template <int D>
+int mma_bwd(bool heads, const void* q, const void* k, const void* v,
+            const void* dout, void* dq, void* dk, void* dv, void* stats,
+            int B, int H, const Geometry& g, cudaStream_t st) {
+  const HeadLayout hl{H, (size_t)H * g.S * D, (size_t)g.S * D};
+  const int groups = heads ? B : B * H, nh = heads ? H : 1;
+  const size_t plane = (size_t)B * H * g.S;
+  if (g.S <= kMmaShortMax)
+    return mma_launch_bwd<D, MmaShort>(q, k, v, dout, dq, dk, dv, stats,
+                                       plane, groups, nh, hl, g, st);
+  return mma_launch_bwd<D, MmaLongBwd>(q, k, v, dout, dq, dk, dv, stats,
+                                       plane, groups, nh, hl, g, st);
 }
 
 int fwd(bool heads, const void* q, const void* k, const void* v, void* o,
@@ -245,11 +262,20 @@ int fwd(bool heads, const void* q, const void* k, const void* v, void* o,
         void* stream) {
   const Geometry g{S, D, S, scale, causal};
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return fwd_for_type<float>(heads, q, k, v, o, B, H, D, g, st);
-  if (dtype == 1)
-    return fwd_for_type<__nv_bfloat16>(heads, q, k, v, o, B, H, D, g, st);
-  return (int)cudaErrorInvalidValue;
+  const int route = route_of(dtype, D);
+  if (route < 0) return (int)cudaErrorInvalidValue;
+  if (route == kRouteTensorCore) {
+    switch (D) {
+      case 16: return mma_fwd<16>(heads, q, k, v, o, B, H, g, st);
+      case 32: return mma_fwd<32>(heads, q, k, v, o, B, H, g, st);
+      default: return mma_fwd<64>(heads, q, k, v, o, B, H, g, st);
+    }
+  }
+  switch (D) {
+    case 16: return launch_fwd<float, 16>(heads, q, k, v, o, B, H, g, st);
+    case 32: return launch_fwd<float, 32>(heads, q, k, v, o, B, H, g, st);
+    default: return launch_fwd<float, 64>(heads, q, k, v, o, B, H, g, st);
+  }
 }
 
 int bwd(bool heads, const void* q, const void* k, const void* v,
@@ -258,13 +284,32 @@ int bwd(bool heads, const void* q, const void* k, const void* v,
         void* stream) {
   const Geometry g{S, D, S, scale, causal};
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return bwd_for_type<float>(heads, q, k, v, dout, dq, dk, dv, stats, B, H,
-                               D, g, st);
-  if (dtype == 1)
-    return bwd_for_type<__nv_bfloat16>(heads, q, k, v, dout, dq, dk, dv,
-                                       stats, B, H, D, g, st);
-  return (int)cudaErrorInvalidValue;
+  const int route = route_of(dtype, D);
+  if (route < 0) return (int)cudaErrorInvalidValue;
+  if (route == kRouteTensorCore) {
+    switch (D) {
+      case 16:
+        return mma_bwd<16>(heads, q, k, v, dout, dq, dk, dv, stats, B, H, g,
+                           st);
+      case 32:
+        return mma_bwd<32>(heads, q, k, v, dout, dq, dk, dv, stats, B, H, g,
+                           st);
+      default:
+        return mma_bwd<64>(heads, q, k, v, dout, dq, dk, dv, stats, B, H, g,
+                           st);
+    }
+  }
+  switch (D) {
+    case 16:
+      return launch_bwd<float, 16>(heads, q, k, v, dout, dq, dk, dv, stats, B,
+                                   H, g, st);
+    case 32:
+      return launch_bwd<float, 32>(heads, q, k, v, dout, dq, dk, dv, stats, B,
+                                   H, g, st);
+    default:
+      return launch_bwd<float, 64>(heads, q, k, v, dout, dq, dk, dv, stats, B,
+                                   H, g, st);
+  }
 }
 
 }  // namespace
@@ -272,7 +317,12 @@ int bwd(bool heads, const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 float32, 1 bfloat16. q, k, v, o, dout, dq, dk, dv: contiguous
-// [B, H, S, D]. stats: scratch of 3 * B * H * S floats.
+// [B, H, S, D], each starting at a 16-byte boundary. stats: scratch of
+// 3 * B * H * S floats.
+
+// The route an input takes, forward and backward alike: 0 tensor cores,
+// 2 key-tiled FMA; -1 for a dtype or head dim the kernels do not take.
+int ttl_bhsd_attention_route(int dtype, int D) { return route_of(dtype, D); }
 
 int ttl_per_head_attention_fwd(const void* q, const void* k, const void* v,
                                void* o, int dtype, int B, int H, int S, int D,

@@ -2,7 +2,10 @@
 
 The sources under `ttl_tpu_torch/csrc/` are compiled with `nvcc` for Hopper
 (`sm_90a`), one `nvcc` process per source, all started together, and linked
-into one shared library with a plain C interface, loaded with ctypes. The
+into one shared library with a plain C interface, loaded with ctypes. Each
+compile runs with `-Xptxas -v`, and what ptxas says of every kernel
+(registers, shared memory, spills) is kept in a text file beside the
+library (`kernel_resources`). The
 build runs at the first kernel launch, never at import, and goes into
 `build/kernels/` beside the package; the library's name carries a hash of
 the sources, so an edited source is rebuilt and a stale library is never
@@ -24,6 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+PTXAS_VERBOSE = ("-Xptxas", "-v")
 
 
 def _sources() -> list[Path]:
@@ -44,24 +48,26 @@ def library_path() -> Path:
     for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + PTXAS_VERBOSE).encode())
     return BUILD_DIR / f"libttl_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run(cmds: list[list[str]]) -> None:
-    """Run the commands side by side; raise with the output of any that
-    failed."""
+def _run(cmds: list[list[str]]) -> list[str]:
+    """Run the commands side by side; return their outputs, or raise with
+    the output of any that failed."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True))
              for cmd in cmds]
-    failed = []
+    failed, outputs = [], []
     for cmd, proc in procs:
         output = proc.communicate()[0]
+        outputs.append(output)
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
                           f"\n{output}")
     if failed:
         raise RuntimeError("\n".join(failed))
+    return outputs
 
 
 def build() -> Path:
@@ -75,12 +81,38 @@ def build() -> Path:
     # load a half-written library
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
-        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-              for src, obj in zip(_sources(), objs)])
+        logs = _run([[nvcc, *NVCC_FLAGS, *PTXAS_VERBOSE, "-c", "-o", obj,
+                      str(src)] for src, obj in zip(_sources(), objs)])
         lib = os.path.join(tmp, out.name)
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        log = os.path.join(tmp, "ptxas.txt")
+        Path(log).write_text("\n".join(logs))
+        os.replace(log, _resources_path(out))
         os.replace(lib, out)
     return out
+
+
+def _resources_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def kernel_resources(name_part: str = "") -> dict[str, str]:
+    """What ptxas reported for each kernel of the built library whose
+    (mangled) name contains `name_part`: {name: 'Used N registers, ...;
+    N bytes spill stores, N bytes spill loads'}."""
+    lines = _resources_path(build()).read_text().splitlines()
+    found, name, spills = {}, None, ""
+    for line in lines:
+        text = line.split("ptxas info    : ", 1)[-1].strip()
+        if text.startswith("Compiling entry function"):
+            name = text.split("'")[1]
+        elif "spill stores" in text:
+            spills = text
+        elif text.startswith("Used ") and name is not None:
+            if name_part in name:
+                found[name] = f"{text}; {spills}"
+            name = None
+    return found
 
 
 @functools.lru_cache(maxsize=1)
@@ -102,6 +134,8 @@ def library() -> ctypes.CDLL:
         bwd = getattr(lib, f"ttl_{route}_attention_bwd")
         bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, p]
         bwd.restype = i
+    lib.ttl_bhsd_attention_route.argtypes = [i, i]
+    lib.ttl_bhsd_attention_route.restype = i
     lib.ttl_quant_matmul.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.ttl_quant_matmul.restype = i
     lib.ttl_ln_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]

@@ -25,7 +25,9 @@ kernel's plain PyTorch version (`attention_bshd_plain`,
 `attention_bhsd_plain`), differentiated by autograd. A CUDA tensor goes
 through a `torch.autograd.Function` whose forward and backward are the
 hand-written Hopper kernels in `csrc/attention_bshd.cu` (K1/K2) and
-`csrc/attention_bhsd.cu` (K3/K4); anything the kernels do not take raises.
+`csrc/attention_bhsd.cu` (K3/K4: bf16 on the tensor-core bodies of
+`csrc/attention_mma.cuh`, f32 on the FMA bodies); anything the kernels do
+not take raises.
 Each wrapper's launch counts (`.fwd_launches`, `.bwd_launches`) grow by one
 at each kernel launch.
 """
@@ -297,6 +299,15 @@ def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # ------------------------------------------- K3 (per_head) and K4 (heads)
 
+def _check_bhsd_layout(t: torch.Tensor) -> None:
+    """The kernels copy 16 bytes a request from a head's rows: contiguous
+    [B, H, S, D] with D a multiple of 8 keeps every row aligned if the
+    tensor's first element is."""
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError("the bhsd attention kernels take contiguous "
+                         "tensors starting at 16-byte boundaries")
+
+
 def _check_bhsd_args(tensors) -> None:
     q = tensors[0]
     if q.dim() != 4:
@@ -312,13 +323,22 @@ def _check_bhsd_args(tensors) -> None:
         if t.shape != q.shape:
             raise ValueError(f"shape mismatch: {tuple(t.shape)} vs "
                              f"{tuple(q.shape)}")
-        if not t.is_contiguous():
-            raise ValueError("the bhsd attention kernels take contiguous "
-                             "tensors")
+        _check_bhsd_layout(t)
     if q.shape[-1] not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {q.shape[-1]} not in {KERNEL_HEAD_DIMS}")
     if min(q.shape) < 1:
         raise ValueError(f"empty tensor {tuple(q.shape)}")
+
+
+def bhsd_kernel_route(dtype: torch.dtype, d: int) -> str:
+    """The route K3 and K4 take on the card for an input type and head dim,
+    forward and backward alike (builds the library): 'tensor cores' for
+    bf16, 'key-tiled FMA' for f32."""
+    code = _build.library().ttl_bhsd_attention_route(
+        _DTYPE_CODES.get(dtype, -1), d)
+    if code < 0:
+        raise ValueError(f"no bhsd attention kernel for {dtype}, head dim {d}")
+    return ROUTES[code]
 
 
 def _bhsd_forward_cuda(wrapper, entry: str, q, k, v, causal: bool):
