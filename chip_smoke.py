@@ -7,9 +7,11 @@ per source, side by side), then:
 
 1. prints the card (torch, and nvidia-smi's name and power limit);
 2. K1, the bshd attention forward, against its plain PyTorch version at the
-   main-path shapes, with max error and median times (CUDA events);
+   main-path shapes, with max error and median times (CUDA events); bf16
+   must take the tensor-core route, f32 the key-tiled FMA one;
 3. K2, the bshd attention backward, against autograd through the plain
-   version, likewise;
+   version, likewise; a second backward on the same inputs must give the
+   same bits;
 4. the main path: `ttl_tpu_torch.runner.run` at ViT-B/16 on test set A
    (200 classes) with every other flag at its default, over 16 synthetic
    images of mixed sizes and random weights made from a seed. It checks
@@ -17,12 +19,15 @@ per source, side by side), then:
    that top-1/top-5 lie in [0, 100]. It then prints the steady-state wall
    samples/s of a longer run (80 images, the runner's own pipeline) and the
    device busy time and top CUDA kernels of one batch (torch.profiler);
-5. card against CPU: one sample's adapted logits through the CUDA path and
-   through the plain path on the CPU, same weights and view draws;
-6. K1/K2 at the geometries the key-tiled route serves (ViT-L/14@336px's
-   592 tokens in bf16 and f32, ViT-L/14's 272 in the f32 backward) against
-   their plain versions, and the route each geometry takes (ViT-B/16's 208
-   keeps the tensor-core kernels);
+5. card against CPU: one sample through the CUDA path and through the
+   plain path on the CPU, same weights and view draws: the adapted logits
+   at top-1, and the gradient the step hands AdamW at its first update
+   within GRAD_BOUND_REL of its largest element (zero-shot: the logits
+   within CARD_CPU_BOUND);
+6. K1/K2 at the towers' other geometries (ViT-L/14@336px's 592 tokens in
+   bf16 and f32, ViT-L/14's 272, ViT-B/32's 64 with 50 true tokens)
+   against their plain versions, and the route each takes: bf16 the tensor
+   cores at every length, f32 the FMA routes;
 7. K5, the int8 linear, against `linear_q_plain` on the card at the main
    path's shapes (bit for bit), with the bf16 `linear` it replaces timed
    beside it;
@@ -46,7 +51,8 @@ per source, side by side), then:
    a score of about 80 late in a row, so that the running max moves;
 12. K4, the heads attention, likewise;
 13. the K1/K2 yardstick: `scaled_dot_product_attention` forward and backward
-   at [512, 208, 768] bf16 with the 197-key mask;
+   at [512, 208, 768] bf16 with the 197-key mask and at [16, 592, 1024] bf16
+   with the 577-key mask;
 14. `--lora_encoder text` under TTL_FUSED_ATTENTION=per_head through
    `runner.run`: both towers through K3 (36 forward and 3 backward launches
    per batch, K1/K2/K4/K5 none);
@@ -54,7 +60,7 @@ per source, side by side), then:
    forward and 12 backward launches per batch (every text layer
    checkpointed), with the run's peak device memory;
 16. `deyo_selection=False` (TPT on LoRA) on the default route, a short run:
-   18 K1 and 3 K2 launches per batch;
+   18 K1 and 3 K2 launches per batch, then card against CPU for one sample;
 17. card against CPU for one sample of phases 14 and 15, the CPU on the
    plain versions under the same route; beside each, as a yardstick held to
    nothing, the same sample through the einsum route on the card;
@@ -93,6 +99,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -109,20 +116,45 @@ FWD_BOUND = {torch.bfloat16: 2 * 2.0 ** -8, torch.float32: 1e-5}
 # 4 bf16 ulps of the largest gradient (2^-8 relative each); at f32, sums in
 # another order, 1e-4 of the largest gradient.
 BWD_BOUND_REL = {torch.bfloat16: 4 * 2.0 ** -8, torch.float32: 1e-4}
-# The key-tiled geometries: (batch, padded tokens, true tokens, dtype)
-TILED_FWD = [(16, 592, 577, torch.bfloat16), (16, 592, 577, torch.float32)]
-TILED_BWD = TILED_FWD + [(16, 272, 257, torch.float32)]
-L_HEADS, L_WIDTH = 16, 1024
+# K1/K2 at the towers' other geometries: (batch, padded tokens, true
+# tokens, heads, width, dtype): ViT-L/14@336px, ViT-L/14, ViT-B/32
+OTHER_FWD = [(16, 592, 577, 16, 1024, torch.bfloat16),
+             (16, 592, 577, 16, 1024, torch.float32),
+             (64, 272, 257, 16, 1024, torch.bfloat16),
+             (512, 64, 50, 12, 768, torch.bfloat16)]
+OTHER_BWD = OTHER_FWD + [(16, 272, 257, 16, 1024, torch.float32)]
 # K5 at the main path's shapes: T = 512 views x 208 tokens
 K5_ROWS = 512 * SEQ_PAD
 K5_SHAPES = [(768, 768, torch.bfloat16), (768, 3072, torch.bfloat16),
              (3072, 768, torch.bfloat16), (768, 768, torch.float32)]
 # card (bf16, kernels, cuBLAS) against CPU (bf16, plain version): both round
 # every activation to bf16 but accumulate in different orders through 12
-# layers, a backward and an AdamW step. Logits are 100 x a cosine; with
-# random weights |logits| < 2, where one bf16 ulp is 2^-7 = 0.0078, and the
-# bound is about 6 such ulps.
+# layers. Logits are 100 x a cosine; with random weights |logits| < 2, where
+# one bf16 ulp is 2^-7 = 0.0078, and the bound is about 6 such ulps. It holds
+# where no AdamW step comes before the logits: zero-shot and CoCoOp's
+# `logits`.
 CARD_CPU_BOUND = 0.05
+# Where one does, AdamW's first update is lr * sign(g) for every element of
+# the trainable state, so an element whose gradient lies below the bf16
+# noise moves the other way in any two correct runs, and the logits after it
+# differ by as much as 0.099 between the card's einsum route and the CPU
+# (PERF.md). Those paths compare what the port decides instead: the
+# gradient that step hands AdamW (LoRA A and B, or the ctx), card against
+# CPU, as max |difference| over the gradient's largest element, and the
+# logits at top-1. Each bound is twice the largest difference that
+# tools/torch_card_cpu_noise.py measured over image seeds 1-8, on the
+# kernels before K1/K2 took the tensor-core bodies and on the einsum route,
+# rounded up to a power of two (H100 80GB HBM3, 700 W; PERF.md). The
+# vision-LoRA window sees 3 layers of bf16 noise; the text tower, 12, and
+# the TPT objective a selection of views that near ties can flip.
+GRAD_BOUND_REL = {
+    "main path": 2.0 ** -8,        # largest 1.62e-3 (einsum route)
+    "int8 main path": 2.0 ** -7,   # 3.76e-3 (kernel route)
+    "text-LoRA": 2.0 ** -4,        # 2.96e-2 (kernel route)
+    "prompt tuning": 2.0 ** -3,    # 3.85e-2 (einsum route)
+    "TPT on LoRA": 2.0 ** -3,      # 4.60e-2 (einsum route)
+    "CoCoOp": 2.0 ** -3,           # 6.07e-2 (einsum route)
+}
 # With the int8 prefix, those bf16 differences also move activations across
 # .5 boundaries of the int8 grid: a share of the codes differs by one step
 # between card and CPU, noise of the same kind as the int8 rounding itself.
@@ -253,11 +285,14 @@ def check_backward(fa, b, s, seq_len, heads, width, dtype, seed) -> dict:
     out = fa.attention_bshd_plain(*leaves, heads, seq_len)
     want = torch.autograd.grad(out, leaves, do, retain_graph=True)
     got = fa.bshd_backward_cuda(q, k, v, do, heads, seq_len)
+    again = fa.bshd_backward_cuda(q, k, v, do, heads, seq_len)
     torch.cuda.synchronize()
     worst = 0.0
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+    for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
         if not torch.isfinite(g).all():
             raise AssertionError(f"K2 {name} is not finite")
+        if not torch.equal(g, g2):
+            raise AssertionError(f"K2 {name} differs between two runs")
         err = (g.float() - w.float())[:, :seq_len].abs().max().item()
         bound = BWD_BOUND_REL[dtype] * w.float().abs().max().item()
         log(f"K2 {name}: max_abs_err {err:.3e} (bound {bound:.3e})")
@@ -269,7 +304,7 @@ def check_backward(fa, b, s, seq_len, heads, width, dtype, seed) -> dict:
     plain_ms = median_ms(lambda: torch.autograd.grad(
         out, leaves, do, retain_graph=True))
     route = fa.kernel_route(True, dtype, s, width // heads)
-    log(f"K2 [{b}, {s}, {width}] {dtype} ({route}): "
+    log(f"K2 [{b}, {s}, {width}] {dtype} ({route}): two runs bit for bit, "
         f"kernel {ms:.4f} ms, plain (autograd backward) {plain_ms:.4f} ms")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             **attention_bound(7, 10, b, heads, s, width // heads, dtype)}
@@ -288,16 +323,27 @@ def sdpa_ms(q, k, v, do, mask=None, causal: bool = False) -> tuple:
     return fwd, bwd
 
 
-def phase_bshd_yardstick() -> tuple:
-    """`scaled_dot_product_attention` at K1/K2's main-path shape, heads as
-    strided views of the [B, S, H*D] tensors, keys past 197 masked."""
-    q, k, v, do = (t.unflatten(-1, (HEADS, -1)).transpose(1, 2)
-                   for t in inputs(512, torch.bfloat16, 4, seed=13))
-    mask = (torch.arange(SEQ_PAD, device="cuda") < SEQ)[None, None, None]
+def bshd_yardstick(b, s, seq_len, heads, width) -> tuple:
+    """(forward ms, backward ms) of `scaled_dot_product_attention` at a
+    K1/K2 shape in bf16, heads as strided views of the [B, S, H*D] tensors,
+    keys past seq_len masked."""
+    q, k, v, do = (t.unflatten(-1, (heads, -1)).transpose(1, 2)
+                   for t in inputs(b, torch.bfloat16, 4, 13, s, width))
+    mask = (torch.arange(s, device="cuda") < seq_len)[None, None, None]
     fwd, bwd = sdpa_ms(q, k, v, do, mask=mask)
-    log(f"scaled_dot_product_attention [512, {SEQ_PAD}, {WIDTH}] bf16, "
-        f"{SEQ}-key mask: forward {fwd:.4f} ms, backward {bwd:.4f} ms")
+    log(f"scaled_dot_product_attention [{b}, {s}, {width}] bf16, "
+        f"{seq_len}-key mask: forward {fwd:.4f} ms, backward {bwd:.4f} ms")
     return fwd, bwd
+
+
+def phase_bshd_yardstick(other: dict) -> tuple:
+    """The yardstick at K1/K2's main-path shape (returned) and at
+    ViT-L/14@336px's, whose bf16 entries of `other` it completes."""
+    b, s, seq_len, heads, width, _ = OTHER_FWD[0]
+    fwd, bwd = bshd_yardstick(b, s, seq_len, heads, width)
+    other[("fwd", s, torch.bfloat16)]["library_ms"] = fwd
+    other[("bwd", s, torch.bfloat16)]["library_ms"] = bwd
+    return bshd_yardstick(512, SEQ_PAD, SEQ, HEADS, WIDTH)
 
 
 def bhsd_inputs(b, h, s, d, dtype, large_score: bool = False):
@@ -410,38 +456,45 @@ def phase_forward(fa) -> dict:
     results = {}
     for b, dtype in [(512, torch.bfloat16), (8, torch.bfloat16),
                      (8, torch.float32)]:
+        expect_route(fa, False, dtype, SEQ_PAD, WIDTH // HEADS)
         results[(b, dtype)] = check_forward(fa, b, SEQ_PAD, SEQ, HEADS, WIDTH,
                                             dtype, seed=b)
     return results[(512, torch.bfloat16)]
 
 
 def phase_backward(fa) -> dict:
+    expect_route(fa, True, torch.bfloat16, SEQ_PAD, WIDTH // HEADS)
     return check_backward(fa, 512, SEQ_PAD, SEQ, HEADS, WIDTH,
                           torch.bfloat16, seed=7)
 
 
-def expect_route(fa, backward: bool, dtype, s: int, d: int, want: str):
+def expect_route(fa, backward: bool, dtype, s: int, d: int):
+    """K1/K2's route rule: bf16 on the tensor cores at every length; f32
+    on the FMA routes, the backward on the whole-head kernel up to
+    ViT-B/16's 208 keys and key-tiled past them."""
+    if dtype == torch.bfloat16:
+        want = "tensor cores"
+    elif backward and s <= SEQ_PAD:
+        want = "whole-head FMA"
+    else:
+        want = "key-tiled FMA"
     route = fa.kernel_route(backward, dtype, s, d)
     if route != want:
         raise AssertionError(f"{'K2' if backward else 'K1'} at {s} keys, "
                              f"{dtype}: the {route} route, not {want}")
 
 
-def phase_key_tiled(fa) -> dict:
-    """K1/K2 where the key-tiled route runs; ViT-B/16 keeps its routes."""
-    for backward in (False, True):
-        expect_route(fa, backward, torch.bfloat16, SEQ_PAD, WIDTH // HEADS,
-                     "tensor cores")
+def phase_other_geometries(fa) -> dict:
+    """K1/K2 at OTHER_FWD / OTHER_BWD, each on the route the rule names."""
     out = {}
-    for b, s, seq_len, dtype in TILED_FWD:
-        expect_route(fa, False, dtype, s, L_WIDTH // L_HEADS,
-                     "key-tiled FMA")
-        out[("fwd", s, dtype)] = check_forward(fa, b, s, seq_len, L_HEADS,
-                                               L_WIDTH, dtype, seed=s)
-    for b, s, seq_len, dtype in TILED_BWD:
-        expect_route(fa, True, dtype, s, L_WIDTH // L_HEADS, "key-tiled FMA")
-        out[("bwd", s, dtype)] = check_backward(fa, b, s, seq_len, L_HEADS,
-                                                L_WIDTH, dtype, seed=s + 1)
+    for b, s, seq_len, heads, width, dtype in OTHER_FWD:
+        expect_route(fa, False, dtype, s, width // heads)
+        out[("fwd", s, dtype)] = check_forward(fa, b, s, seq_len, heads,
+                                               width, dtype, seed=s)
+    for b, s, seq_len, heads, width, dtype in OTHER_BWD:
+        expect_route(fa, True, dtype, s, width // heads)
+        out[("bwd", s, dtype)] = check_backward(fa, b, s, seq_len, heads,
+                                                width, dtype, seed=s + 1)
     return out
 
 
@@ -740,11 +793,40 @@ def phase_path(fa, tq, name: str, cfg, per_batch: dict,
             "busy_share": busy_s / np.median(pace), "peak_gb": peak_gb}
 
 
+class Sample(NamedTuple):
+    """One sample through a path: its logits ([C]; for CoCoOp [2, C],
+    `logits` above `adapted_logits`) and the gradient its adaptation step
+    handed AdamW at the first update, flat in f32 (None without AdamW)."""
+    logits: torch.Tensor
+    grad: Optional[torch.Tensor]
+
+
+@contextlib.contextmanager
+def first_update_gradient():
+    """Record the gradients of the trainable state (the LoRA A and B
+    leaves, or the ctx) that the package's steps pass to their AdamW
+    (`adapt.ttl._adamw`, which `adapt.cocoop` imports) at the first
+    update: a list that holds them, concatenated, once the step has run."""
+    from ttl_tpu_torch.adapt import cocoop, ttl
+    adamw, seen = ttl._adamw, []
+
+    def recording(params, grads, *rest):
+        if not seen:
+            seen.append(torch.cat([g.detach().float().flatten().cpu()
+                                   for g in grads]))
+        return adamw(params, grads, *rest)
+
+    ttl._adamw = cocoop._adamw = recording
+    try:
+        yield seen
+    finally:
+        ttl._adamw = cocoop._adamw = adamw
+
+
 def sample_step(cfg, image_seed: int = SEED + 1):
-    """run_on(device) -> one fixed sample's logits through `cfg`'s path,
-    with weights made on the card and moved to `device`; for CoCoOp a
-    [2, C] tensor, `logits` above `adapted_logits`. `image_seed` makes the
-    sample's pixels."""
+    """run_on(device) -> one fixed sample through `cfg`'s path as a
+    `Sample`, with weights made on the card and moved to `device`.
+    `image_seed` makes the sample's pixels."""
     from ttl_tpu_torch import runner
     from ttl_tpu_torch.adapt.ttl import (make_fused_cocoop_fn,
                                          make_fused_tpt_fn,
@@ -815,8 +897,10 @@ def sample_step(cfg, image_seed: int = SEED + 1):
                             put(host["canvases"]), put(host["hs"]),
                             put(host["ws"]))
 
-    def run_on(device):
-        return step(lambda t: t.to(device))[0].float().cpu()
+    def run_on(device) -> Sample:
+        with first_update_gradient() as grads:
+            logits = step(lambda t: t.to(device))[0].float().cpu()
+        return Sample(logits, grads[0] if grads else None)
 
     return run_on
 
@@ -824,7 +908,7 @@ def sample_step(cfg, image_seed: int = SEED + 1):
 def card_and_cpu(cfg, **sample):
     """One sample through the CUDA path and through the plain path on the
     CPU, same weights (made, and quantised, on the card) and view draws:
-    (card logits, CPU logits, CPU seconds)."""
+    (card `Sample`, CPU `Sample`, CPU seconds)."""
     run_on = sample_step(cfg, **sample)
     card = run_on(torch.device("cuda"))
     t0 = time.perf_counter()
@@ -844,50 +928,90 @@ def expect_close(name: str, card, cpu, bound: float, cpu_s: float) -> None:
         raise AssertionError(f"card and CPU disagree ({name})")
 
 
-def phase_card_vs_cpu(cfg, name: str):
-    """Card against CPU within CARD_CPU_BOUND; returns (card, CPU) logits."""
+def relative_gradient_error(card: Sample, cpu: Sample) -> float:
+    """max |card - CPU| of the first update's gradient over its largest
+    element on the CPU."""
+    return ((card.grad - cpu.grad).abs().max()
+            / cpu.grad.abs().max()).item()
+
+
+def expect_adapted(name: str, card: Sample, cpu: Sample, bound: float,
+                   cpu_s: float, row: int = 0) -> None:
+    """A path whose logits come after an AdamW step: they must agree at
+    top-1 (their largest difference is printed, held to nothing), and the
+    gradient that step took within `bound` of its largest element."""
+    card_l, cpu_l = card.logits.reshape(-1, card.logits.shape[-1])[row], \
+        cpu.logits.reshape(-1, cpu.logits.shape[-1])[row]
+    err = relative_gradient_error(card, cpu)
+    top2 = cpu_l.topk(2).values
+    log(f"card vs CPU, {name}: top-1 {int(card_l.argmax())} vs "
+        f"{int(cpu_l.argmax())} (CPU margin to the second "
+        f"{(top2[0] - top2[1]).item():.4f}), logits max_abs_diff "
+        f"{(card_l - cpu_l).abs().max().item():.3e}; first update's "
+        f"gradient ({cpu.grad.numel()} elements, largest "
+        f"{cpu.grad.abs().max().item():.3e}): max_abs_diff / largest "
+        f"{err:.3e} (bound {bound:.3e}); CPU run {cpu_s:.1f} s")
+    if int(card_l.argmax()) != int(cpu_l.argmax()) or not err <= bound:
+        raise AssertionError(f"card and CPU disagree ({name})")
+
+
+def phase_card_vs_cpu(cfg, name: str, path: str = ""):
+    """Card against CPU: the logits within CARD_CPU_BOUND where no AdamW
+    step comes before them (zero-shot), else `expect_adapted` within
+    GRAD_BOUND_REL[path]. Returns the (card, CPU) `Sample`s."""
     card, cpu, cpu_s = card_and_cpu(cfg)
-    expect_close(name, card, cpu, CARD_CPU_BOUND, cpu_s)
+    if card.grad is None:
+        expect_close(name, card.logits, cpu.logits, CARD_CPU_BOUND, cpu_s)
+    else:
+        expect_adapted(name, card, cpu, GRAD_BOUND_REL[path], cpu_s)
     return card, cpu
 
 
-def log_einsum_yardstick(fa, cfg, name: str, cpu) -> None:
+def log_einsum_yardstick(fa, cfg, name: str, cpu: Sample) -> None:
     """The same sample on the card through the einsum route (no hand-written
-    attention kernel) against the CPU logits of `phase_card_vs_cpu`: how far
-    two correct runs of this path lie apart. Printed, held to nothing."""
+    attention kernel) against the CPU `Sample` of `phase_card_vs_cpu`: how
+    far two correct runs of this path lie apart. Printed, held to nothing."""
     with attention_route(fa, "off"):
         card = sample_step(cfg)(torch.device("cuda"))
     log(f"card vs CPU, {name}, yardstick: the einsum route on the card "
         f"differs from the same CPU logits by "
-        f"{(card - cpu).abs().max().item():.3e}")
+        f"{(card.logits - cpu.logits).abs().max().item():.3e}, its first "
+        f"update's gradient by {relative_gradient_error(card, cpu):.3e} of "
+        f"the largest element")
 
 
 def phase_cocoop_card_vs_cpu(cfg) -> None:
-    """CoCoOp, card against CPU within CARD_CPU_BOUND, for `logits` (the
-    clean view under its own unadapted ctx: the runner's result) and for
+    """CoCoOp, card against CPU: `logits` (the clean view under its own
+    unadapted ctx: the runner's result) within CARD_CPU_BOUND;
     `adapted_logits` (the clean view under the ctx the step tuned, which
-    the 63 random views, the backward and AdamW reach)."""
+    the 63 random views, the backward and AdamW reach) by
+    `expect_adapted`."""
     card, cpu, cpu_s = card_and_cpu(cfg, image_seed=COCOOP_IMAGE_SEED)
-    for row, name in enumerate(("logits", "adapted_logits")):
-        expect_close(f"CoCoOp {name}", card[row], cpu[row], CARD_CPU_BOUND,
-                     cpu_s)
+    expect_close("CoCoOp logits", card.logits[0], cpu.logits[0],
+                 CARD_CPU_BOUND, cpu_s)
+    expect_adapted("CoCoOp adapted_logits", card, cpu,
+                   GRAD_BOUND_REL["CoCoOp"], cpu_s, row=1)
 
 
 def phase_int8_card_vs_cpu(name: str, flags: tuple, fp) -> None:
-    """The path `flags` with the int8 prefix, card against CPU, within
-    CARD_CPU_BOUND plus the CPU's int8 effect; the spread of the int8 effect
-    on the card must match the CPU's (EFFECT_SPREAD). `fp`: the (card, CPU)
-    logits of the path without the int8 prefix."""
+    """The path `flags` with the int8 prefix, card against CPU: zero-shot
+    within CARD_CPU_BOUND plus the CPU's int8 effect, an adapted path by
+    `expect_adapted` within its GRAD_BOUND_REL; the spread of the int8
+    effect on the card must match the CPU's (EFFECT_SPREAD). `fp`: the
+    (card, CPU) `Sample`s of the path without the int8 prefix."""
     card, cpu, cpu_s = card_and_cpu(config(*flags, "--prefix_quant", "int8"))
-    on_card, on_cpu = card - fp[0], cpu - fp[1]
+    on_card, on_cpu = card.logits - fp[0].logits, cpu.logits - fp[1].logits
     ratio = on_card.std().item() / on_cpu.std().item()
     log(f"{name}, int8 effect: max {on_card.abs().max().item():.3e} on the "
         f"card, {on_cpu.abs().max().item():.3e} on the CPU; spread over the "
         f"classes {on_card.std().item():.3e} on the card, "
         f"{on_cpu.std().item():.3e} on the CPU, ratio {ratio:.4f} (within "
         f"{EFFECT_SPREAD})")
-    expect_close(name, card, cpu,
-                 CARD_CPU_BOUND + on_cpu.abs().max().item(), cpu_s)
+    if card.grad is None:
+        expect_close(name, card.logits, cpu.logits,
+                     CARD_CPU_BOUND + on_cpu.abs().max().item(), cpu_s)
+    else:
+        expect_adapted(name, card, cpu, GRAD_BOUND_REL[name], cpu_s)
     if not EFFECT_SPREAD[0] <= ratio <= EFFECT_SPREAD[1]:
         raise AssertionError(f"{name}: the int8 effect on the card does not "
                              f"match the CPU's (spread ratio {ratio})")
@@ -960,18 +1084,21 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
-    log("ptxas on the tensor-core attention kernels <head dim, warps, rows "
+    log("ptxas on the tensor-core attention kernels, by source (K1/K2: "
+        "attention_bshd.cu, K3/K4: attention_bhsd.cu) <head dim, warps, rows "
         "a stage, stages>:")
-    for name, used in sorted(_build.kernel_resources("mma_").items()):
-        log("  " + re.sub(r".*(mma_\w+?)ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E.*",
-                          r"\1<\2, \3, \4, \5>", name) + ": " + used)
+    for key, used in sorted(_build.kernel_resources("mma_").items()):
+        source, name = key.split(": ", 1)
+        log(f"  {source} " + re.sub(
+            r".*(mma_\w+?)ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E.*",
+            r"\1<\2, \3, \4, \5>", name) + ": " + used)
 
     fwd = phase_forward(fa)
     bwd = phase_backward(fa)
     main_path = phase_path(fa, tq, "main path", config(),
                            {"K1": 15, "K2": 3, "K5": 0})
-    main_fp = phase_card_vs_cpu(config(), "main path")
-    tiled = phase_key_tiled(fa)
+    main_fp = phase_card_vs_cpu(config(), "main path", "main path")
+    other = phase_other_geometries(fa)
     k5 = phase_k5(tq)
     int8_path = phase_path(fa, tq, "int8 main path",
                            config("--prefix_quant", "int8"),
@@ -987,24 +1114,26 @@ def main() -> int:
                                              "zero-shot without int8"))
     k3 = phase_bhsd(fa, "per_head", "K3")
     k4 = phase_bhsd(fa, "heads", "K4")
-    lib_k1, lib_k2 = phase_bshd_yardstick()
+    lib_k1, lib_k2 = phase_bshd_yardstick(other)
     text_cfg = config("--lora_encoder", "text")
     prompt_cfg = config("--lora_encoder", "prompt")
     with attention_route(fa, "per_head"):
         text_path = phase_path(fa, tq, "text-LoRA, per_head route", text_cfg,
                                {"K3 fwd": 36, "K3 bwd": 3})
-        _, text_cpu = phase_card_vs_cpu(text_cfg, "text-LoRA, per_head route")
+        _, text_cpu = phase_card_vs_cpu(text_cfg, "text-LoRA, per_head route",
+                                        "text-LoRA")
     with attention_route(fa, "heads"):
         prompt_path = phase_path(fa, tq, "prompt tuning, heads route",
                                  prompt_cfg, {"K4 fwd": 60, "K4 bwd": 12})
         _, prompt_cpu = phase_card_vs_cpu(prompt_cfg,
-                                          "prompt tuning, heads route")
+                                          "prompt tuning, heads route",
+                                          "prompt tuning")
     log_einsum_yardstick(fa, text_cfg, "text-LoRA", text_cpu)
     log_einsum_yardstick(fa, prompt_cfg, "prompt tuning", prompt_cpu)
-    tpt_lora = phase_path(
-        fa, tq, "TPT on LoRA",
-        config("--deyo_selection", "False"),
-        {"K1": 18, "K2": 3}, timed=False)
+    tpt_lora_cfg = config("--deyo_selection", "False")
+    tpt_lora = phase_path(fa, tq, "TPT on LoRA", tpt_lora_cfg,
+                          {"K1": 18, "K2": 3}, timed=False)
+    phase_card_vs_cpu(tpt_lora_cfg, "TPT on LoRA", "TPT on LoRA")
     k6 = phase_k6(tlm)
     cocoop_cfg = config("--cocoop")
     cocoop_path = phase_path(fa, tq, "CoCoOp", cocoop_cfg,
@@ -1028,6 +1157,12 @@ def main() -> int:
     fc1 = k5[(768, 3072, torch.bfloat16)]
     k6_fc1 = k6[(K6_ROWS, 768, 3072, torch.bfloat16)]
 
+    def other_shapes(kind):
+        """K1's or K2's results at OTHER_FWD / OTHER_BWD, by shape."""
+        return {f"[{b}, {s}, {w}] {d}": other[(kind, s, d)]
+                for b, s, _, _, w, d in (OTHER_FWD if kind == "fwd"
+                                         else OTHER_BWD)}
+
     def bhsd_kernel(name, replaces, results, which, path, key):
         """K3/K4's line: the numbers at the vision shape, the launches of
         the path that runs the kernel, every shape under `shapes`."""
@@ -1043,17 +1178,13 @@ def main() -> int:
          "launches": main_path["launches"]["K1"], **fwd,
          "library_ms": lib_k1,
          "launches_by_path": by_path("K1"),
-         "key_tiled": {f"[16, {s}, 1024] {d}": r
-                       for (kind_, s, d), r in tiled.items()
-                       if kind_ == "fwd"}},
+         "shapes": other_shapes("fwd")},
         {"name": "bshd_attention_bwd", "route": "cuda", "source": src,
          "replaces": "ttl_tpu/ops/attention.py:482",
          "launches": main_path["launches"]["K2"], **bwd,
          "library_ms": lib_k2,
          "launches_by_path": by_path("K2"),
-         "key_tiled": {f"[16, {s}, 1024] {d}": r
-                       for (kind_, s, d), r in tiled.items()
-                       if kind_ == "bwd"}},
+         "shapes": other_shapes("bwd")},
         bhsd_kernel("per_head_attention_fwd", "ttl_tpu/ops/attention.py:152",
                     k3, "fwd", text_path, "K3 fwd"),
         bhsd_kernel("per_head_attention_bwd", "ttl_tpu/ops/attention.py:200",

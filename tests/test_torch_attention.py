@@ -6,7 +6,9 @@ Pallas kernels in interpret mode on the CPU. Inputs are made with numpy.
 Tolerances: forward rtol/atol 2e-5 and VJP rtol 2e-4 / atol 2e-5 at f32,
 the bounds of the JAX package's own kernel tests (f32 sums in another
 order). The CUDA kernel cases run only where a card is present; they cover
-every route, the key-tiled one at ViT-L/14@336px's 592 tokens included.
+every route: bf16 on the tensor-core bodies of `csrc/attention_mma.cuh`
+(emulated tile by tile below, on the CPU), f32 on the FMA routes, the
+key-tiled ones at ViT-L/14@336px's 592 tokens included.
 """
 import jax
 import jax.numpy as jnp
@@ -125,12 +127,11 @@ KERNEL_CASES = [
     # the kernel keeps f32 -> a few bf16 ulps of the largest gradient
     (8, 208, 12, 64, 197, torch.bfloat16, 1e-2, 2e-2),
     (3, 37, 2, 32, 30, torch.bfloat16, 1e-2, 2e-2),
-    # ViT-L/14's 272 tokens; past 288 keys the bf16 forward takes the
-    # key-tiled kernel
+    # ViT-L/14's 272 tokens, and 304
     (2, 272, 4, 64, 257, torch.bfloat16, 1e-2, 2e-2),
     (2, 304, 4, 64, 290, torch.bfloat16, 1e-2, 2e-2),
-    # the key-tiled route: ViT-L/14@336px (577 tokens padded to 592) in both
-    # dtypes, ViT-L/14 (257 padded to 272) in the f32 backward
+    # ViT-L/14@336px (577 tokens padded to 592) in both dtypes, ViT-L/14
+    # (257 padded to 272) in the f32 backward: the key-tiled routes of f32
     (2, 592, 16, 64, 577, torch.float32, 1e-5, 1e-4),
     (2, 592, 16, 64, 577, torch.bfloat16, 1e-2, 2e-2),
     (2, 272, 16, 64, 257, torch.float32, 1e-5, 1e-4),
@@ -167,16 +168,21 @@ def test_kernels_match_plain_on_card(cuda_device, b, s, h, d, seq_len, dtype,
 @pytest.mark.parametrize("backward,dtype,s,route", [
     (False, torch.bfloat16, 208, "tensor cores"),     # ViT-B/16
     (True, torch.bfloat16, 208, "tensor cores"),
-    (False, torch.float32, 208, "key-tiled FMA"),     # every FMA forward
+    (False, torch.bfloat16, 64, "tensor cores"),      # ViT-B/32
+    (True, torch.bfloat16, 64, "tensor cores"),
+    (False, torch.float32, 208, "key-tiled FMA"),     # every f32 forward
     (True, torch.float32, 208, "whole-head FMA"),
-    (True, torch.bfloat16, 272, "whole-head FMA"),    # ViT-L/14
+    (False, torch.bfloat16, 272, "tensor cores"),     # ViT-L/14
+    (True, torch.bfloat16, 272, "tensor cores"),
     (True, torch.float32, 272, "key-tiled FMA"),
-    (False, torch.bfloat16, 592, "key-tiled FMA"),    # ViT-L/14@336px
+    (False, torch.bfloat16, 592, "tensor cores"),     # ViT-L/14@336px
+    (True, torch.bfloat16, 592, "tensor cores"),
     (True, torch.float32, 592, "key-tiled FMA"),
 ])
 def test_kernel_route_per_geometry(cuda_device, backward, dtype, s, route):
-    """Tensor cores where they fit; then the key-tiled forward, and the
-    whole-head backward where it fits shared memory."""
+    """bf16 on the tensor cores at every S; f32 on the FMA routes: the
+    key-tiled forward, and the whole-head backward where it fits shared
+    memory."""
     assert tfa.kernel_route(backward, dtype, s, 64) == route
 
 
@@ -420,8 +426,8 @@ def test_bhsd_autograd_functions_count_launches(cuda_device, mode, wrapper):
 #
 # `csrc/attention_mma.cuh` cannot run here. Its arithmetic can: the functions
 # below repeat it in plain PyTorch, tile by tile as the kernels walk a head.
-# 16 query rows (or keys) a warp, the other side in stages of 32 or 64 rows
-# (`_mma_tiles`);
+# 16 query rows (or keys) a warp, blocks of 32, 64 or 128 rows, the other
+# side in stages of 32 or 64 rows (`_mma_tiles`);
 # the forward's online softmax against the running max with P rounded to
 # bf16 before P.V (normalised first where the block has one stage); the
 # backward's rows sweep (e, dP shifted by its value at
@@ -442,24 +448,34 @@ def _split_matmul(x, y):
 
 
 def _mma_tiles(s, backward=False):
-    """(rows a block, rows a stage) the launcher picks for S tokens."""
+    """(rows a block, rows a stage) the launcher picks for S tokens: the
+    forward's 128-row blocks where they pad S no more than 64-row ones."""
     if s <= 32:
         return 32, 32
-    return 64, 32 if backward else 64
+    if backward:
+        return 64, 32
+    return (128 if (s + 63) // 64 % 2 == 0 else 64), 64
 
 
-def _masked_scores(qb, kb, rows, keys, causal):
+def _kept(rows, keys, causal, seq_len):
+    """[rows, keys] bool: the key limit (K1/K2's padded rows) and the
+    causal mask."""
+    keep = (keys < seq_len)[None, :].expand(len(rows), -1)
+    return keep & (keys[None, :] <= rows[:, None]) if causal else keep
+
+
+def _masked_scores(qb, kb, rows, keys, causal, seq_len):
     x = qb @ kb.transpose(-1, -2) * (1.0 / qb.shape[-1] ** 0.5)
-    if causal:
-        x = torch.where(keys[None, :] <= rows[:, None], x,
-                        torch.full_like(x, tfa.MASK_VALUE))
-    return x
+    return torch.where(_kept(rows, keys, causal, seq_len), x,
+                       torch.full_like(x, tfa.MASK_VALUE))
 
 
-def emulate_mma_forward(q, k, v, causal, visited=None):
-    """[B, H, S, D] bf16 -> bf16, as `mma_fwd_kernel` computes it. `visited`
-    collects the (first row, first key) of every (warp, stage) multiplied."""
+def emulate_mma_forward(q, k, v, causal, visited=None, seq_len=None):
+    """[B, H, S, D] bf16 -> bf16, as `mma_fwd_kernel` computes it, keys at
+    or past `seq_len` (None: S) masked. `visited` collects the (first row,
+    first key) of every (warp, stage) multiplied."""
     s = q.shape[-2]
+    seq_len = s if seq_len is None else seq_len
     block, kt = _mma_tiles(s)
     qf, kf, vf = q.float(), k.float(), v.float()
     out = torch.empty_like(qf)
@@ -477,7 +493,7 @@ def emulate_mma_forward(q, k, v, causal, visited=None):
             if visited is not None:
                 visited.append((r0, k0))
             x = _masked_scores(qf[:, :, rows], kf[:, :, keys], rows, keys,
-                               causal)
+                               causal, seq_len)
             m_new = torch.maximum(m, x.amax(-1, keepdim=True))
             alpha = torch.exp(m - m_new)
             p = torch.exp(x - m_new)
@@ -490,10 +506,11 @@ def emulate_mma_forward(q, k, v, causal, visited=None):
     return out.to(torch.bfloat16)
 
 
-def emulate_mma_backward(q, k, v, do, causal):
+def emulate_mma_backward(q, k, v, do, causal, seq_len=None):
     """(dq, dk, dv) in bf16, as `mma_bwd_rows_kernel` and
-    `mma_bwd_keys_kernel` compute them."""
+    `mma_bwd_keys_kernel` compute them, keys at or past `seq_len` masked."""
     s, d = q.shape[-2:]
+    seq_len = s if seq_len is None else seq_len
     scale = 1.0 / d ** 0.5
     _, kt = _mma_tiles(s, backward=True)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
@@ -509,7 +526,8 @@ def emulate_mma_backward(q, k, v, do, causal):
         shift = dob @ vf[:, :, :1].transpose(-1, -2)   # dP at key 0
         for k0 in range(0, kend, kt):
             keys = torch.arange(k0, min(k0 + kt, s))
-            x = _masked_scores(qb, kf[:, :, keys], rows, keys, causal)
+            x = _masked_scores(qb, kf[:, :, keys], rows, keys, causal,
+                               seq_len)
             m_new = torch.maximum(m, x.amax(-1, keepdim=True))
             alpha = torch.exp(m - m_new)
             e = torch.exp(x - m_new)
@@ -537,9 +555,8 @@ def emulate_mma_backward(q, k, v, do, causal):
             m, l, rs = (t[:, :, rows].transpose(-1, -2)
                         for t in (st_m, st_l, st_rs))
             p = torch.exp(x - m) * (1.0 / l)
-            if causal:
-                p = torch.where(keys[:, None] <= rows[None, :], p,
-                                torch.zeros_like(p))
+            p = torch.where(_kept(rows, keys, causal, seq_len).T, p,
+                            torch.zeros_like(p))
             ds = p * (vb @ dob.transpose(-1, -2) - rs) * scale
             acc_dv = acc_dv + _split_matmul(p, dob)
             acc_dk = acc_dk + _split_matmul(ds, qb)
@@ -738,3 +755,169 @@ def test_bhsd_kernel_route_per_input(cuda_device, dtype, d, route):
     assert tfa.bhsd_kernel_route(dtype, d) == route
     with pytest.raises(ValueError, match="no bhsd attention kernel"):
         tfa.bhsd_kernel_route(dtype, 48)
+
+
+# ------------- K1/K2's bf16 route: the same bodies over [B, S, H*D] rows
+#
+# K1 and K2 take the bodies emulated above, a head addressed by its column
+# slice of every row, with the keys at or past seq_len masked. At the
+# towers' geometries (S = 64 with 50 true tokens: one stage, P normalised
+# before it is rounded; 208 with 197: four stages, P rounded against the
+# running max) the emulation is held to the bounds of the card run against
+# the plain version and against K1/K2's Pallas functions in interpret mode.
+
+BSHD_MMA_CASES = [
+    # (B, S, heads, head_dim, seq_len)
+    (2, 64, 2, 16, 50),      # ViT-B/32: 50 tokens padded to 64
+    (1, 208, 2, 16, 197),    # ViT-B/16: 197 padded to 208
+    (2, 48, 3, 32, 30),      # a ragged tile
+    (1, 112, 2, 64, 70),     # two stages, the second mostly padding
+]
+
+
+def emulate_bshd_forward(q, k, v, heads, seq_len):
+    qh, kh, vh = (tfa._split_heads(t, heads) for t in (q, k, v))
+    return tfa._merge_heads(emulate_mma_forward(qh, kh, vh, False,
+                                                seq_len=seq_len))
+
+
+def emulate_bshd_backward(q, k, v, do, heads, seq_len):
+    grads = emulate_mma_backward(
+        *(tfa._split_heads(t, heads) for t in (q, k, v, do)), False,
+        seq_len=seq_len)
+    return tuple(tfa._merge_heads(g) for g in grads)
+
+
+def _bshd_bf16(b, s, h, d, seed, n):
+    return [torch.from_numpy(t).to(torch.bfloat16)
+            for t in _inputs(b, s, h, d, seed=seed, n=n)]
+
+
+@pytest.mark.parametrize("b,s,h,d,seq_len", BSHD_MMA_CASES)
+def test_mma_emulation_bshd_matches_plain(b, s, h, d, seq_len):
+    """The rows the towers read (below seq_len) within the card run's
+    bounds; dK and dV of padded keys exactly 0, as the plain version's."""
+    q, k, v, do = _bshd_bf16(b, s, h, d, 23, 4)
+    want = tfa.attention_bshd_plain(q, k, v, h, seq_len).float()
+    got = emulate_bshd_forward(q, k, v, h, seq_len).float()
+    assert (got - want)[:, :seq_len].abs().max() <= MMA_FWD_BOUND * max(
+        1.0, want.abs().max().item())
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    tfa.attention_bshd_plain(*leaves, h, seq_len).backward(do)
+    for g, leaf, name in zip(emulate_bshd_backward(q, k, v, do, h, seq_len),
+                             leaves, "qkv"):
+        want = leaf.grad.float()
+        err = (g.float() - want)[:, :seq_len].abs().max().item()
+        assert err <= MMA_BWD_BOUND * want.abs().max().item(), f"d{name}"
+        if name in "kv":
+            assert not g[:, seq_len:].any() and not want[:, seq_len:].any()
+
+
+@pytest.mark.parametrize("b,s,h,d,seq_len", BSHD_MMA_CASES)
+def test_mma_emulation_bshd_matches_pallas(b, s, h, d, seq_len):
+    """Against `attention_bshd_fused` (K1/K2's Pallas kernels, interpret
+    mode) in bf16, on the rows below seq_len, with the bounds of
+    `test_mma_emulation_matches_pallas`."""
+    q, k, v, do = _inputs(b, s, h, d, seed=24, n=4)
+    jq, jk, jv, jdo = (jnp.asarray(t).astype(jnp.bfloat16)
+                       for t in (q, k, v, do))
+    out, vjp = jax.vjp(lambda q, k, v: _jax_attention(q, k, v, h, seq_len),
+                       jq, jk, jv)
+    want = vjp(jdo)
+    tq, tk, tv, tdo = (torch.from_numpy(t).to(torch.bfloat16)
+                       for t in (q, k, v, do))
+    ref = np.asarray(out.astype(jnp.float32))[:, :seq_len]
+    got = emulate_bshd_forward(tq, tk, tv, h, seq_len).float().numpy()
+    assert np.abs(got[:, :seq_len] - ref).max() <= MMA_FWD_BOUND * max(
+        1.0, np.abs(ref).max())
+    for g, w, name in zip(emulate_bshd_backward(tq, tk, tv, tdo, h, seq_len),
+                          want, "qkv"):
+        w = np.asarray(w.astype(jnp.float32))[:, :seq_len]
+        err = np.abs(g.float().numpy()[:, :seq_len] - w).max()
+        assert err <= 2 * 2.0 ** -8 * np.abs(w).max(), f"d{name}: {err}"
+
+
+def test_mma_emulation_bshd_one_stage_rounds_p_as_plain():
+    """ViT-B/32's head (64 keys, 50 true) fits one stage: P is normalised
+    and then rounded, as the plain version does, so nearly every output is
+    the same bf16 value."""
+    q, k, v = _bshd_bf16(4, 64, 2, 16, 25, 3)
+    want = tfa.attention_bshd_plain(q, k, v, 2, 50)[:, :50]
+    got = emulate_bshd_forward(q, k, v, 2, 50)[:, :50]
+    assert (got == want).float().mean() > 0.99
+
+
+BSHD_ODD_CASES = [
+    # (B, S, heads, head_dim, seq_len), all bf16
+    (4, 64, 12, 64, 50),      # ViT-B/32
+    (2, 208, 4, 16, 197),     # head dim 16 at ViT-B/16's length
+    (2, 100, 3, 32, 70),      # head dim 32, ragged
+    (3, 32, 4, 64, 17),       # a short head: 2 warps, 32-row stages
+    (3, 16, 2, 16, 1),        # one true key
+    (1, 592, 16, 64, 577),    # ViT-L/14@336px, a large score late in a row
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,seq_len", BSHD_ODD_CASES)
+def test_bshd_tensor_core_route_odd_geometries(cuda_device, b, s, h, d,
+                                               seq_len):
+    """K1/K2 on the tensor cores against the plain version within the card
+    run's bounds, on the rows below seq_len; the backward twice, bit for
+    bit."""
+    assert tfa.kernel_route(False, torch.bfloat16, s, d) == "tensor cores"
+    assert tfa.kernel_route(True, torch.bfloat16, s, d) == "tensor cores"
+    q, k, v, do = _bshd_bf16(b, s, h, d, 26, 4)
+    if s > 500:
+        k[:, s - 77] = 10.0 * q[:, 5]
+    q, k, v, do = (t.to(cuda_device) for t in (q, k, v, do))
+    out = tfa.bshd_forward_cuda(q, k, v, h, seq_len)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = tfa.attention_bshd_plain(*leaves, h, seq_len)
+    ref.backward(do)
+    grads = tfa.bshd_backward_cuda(q, k, v, do, h, seq_len)
+    again = tfa.bshd_backward_cuda(q, k, v, do, h, seq_len)
+    torch.cuda.synchronize()
+    ref = ref.detach().float()
+    assert torch.isfinite(out[:, :seq_len]).all()
+    assert (out.float() - ref)[:, :seq_len].abs().max() <= MMA_FWD_BOUND * \
+        max(1.0, ref.abs().max().item())
+    for got, got2, leaf in zip(grads, again, leaves):
+        want = leaf.grad.float()
+        assert torch.isfinite(got).all() and torch.equal(got, got2)
+        assert (got.float() - want)[:, :seq_len].abs().max() <= \
+            MMA_BWD_BOUND * want.abs().max()
+
+
+# the forward's tile heights on either side of the rule: 128-row blocks at
+# an even number of 64-row tiles (65, 128, 197, 256), 64-row ones otherwise
+# (64, 129, 192, 257)
+WIDE_RULE_CASES = [64, 65, 128, 129, 192, 197, 256, 257]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", WIDE_RULE_CASES)
+def test_forward_tile_rule_geometries(cuda_device, s):
+    """K1 (rows of [B, S, H*D], the last 5 keys padding), K3 and K4 (causal)
+    at lengths on either side of the 8-warp rule, against the plain
+    versions within the card run's forward bound."""
+    q, k, v = (t.to(cuda_device) for t in _bshd_bf16(2, s, 4, 64, 27, 3))
+    out = tfa.bshd_forward_cuda(q, k, v, 4, s - 5)
+    ref = tfa.attention_bshd_plain(q, k, v, 4, s - 5).float()
+    torch.cuda.synchronize()
+    assert (out.float() - ref)[:, :s - 5].abs().max() <= MMA_FWD_BOUND * \
+        max(1.0, ref.abs().max().item())
+    qh, kh, vh = (t.to(cuda_device) for t in _bf16_inputs(2, 4, s, 64, 28, 3))
+    ref = tfa.attention_bhsd_plain(qh, kh, vh, True).float()
+    for forward in (tfa.per_head_forward_cuda, tfa.heads_forward_cuda):
+        out = forward(qh, kh, vh, True)
+        torch.cuda.synchronize()
+        assert (out.float() - ref).abs().max() <= MMA_FWD_BOUND * max(
+            1.0, ref.abs().max().item())
+
+
+def test_emulated_forward_tile_rule():
+    """The launcher's rule as the emulation reads it."""
+    assert [_mma_tiles(s)[0] for s in WIDE_RULE_CASES] == \
+        [64, 128, 128, 64, 64, 128, 128, 64]
+    assert _mma_tiles(32) == (32, 32) and _mma_tiles(197, True) == (64, 32)

@@ -1,24 +1,29 @@
-"""How far two correct runs of a text-side path of `ttl_tpu_torch` lie apart.
+"""How far two correct runs of an adapted path of `ttl_tpu_torch` lie apart.
 
-`chip_smoke.py` holds one sample's logits on the card (K3 or K4) against the
-same sample through the plain version on the CPU, within CARD_CPU_BOUND. On
-the prompt-tuning path that difference is mostly the path's own: AdamW's
-first step is lr * sign(g) for every element of the ctx, so an element whose
-gradient is smaller than the bf16 noise moves the other way in any two runs
-that sum in another order. This script measures that floor. For the images
-made from each seed it runs the sample on the CPU (plain version), on the
-card through the kernel route, and on the card through the einsum route (no
-hand-written attention kernel), and prints the largest difference of the
-logits between each pair.
+`chip_smoke.py` holds one sample on the card against the same sample
+through the plain versions on the CPU. On a path whose logits come after an
+AdamW step, the logits are mostly the path's own noise: AdamW's first step
+is lr * sign(g) for every element of the trainable state, so an element
+whose gradient is smaller than the bf16 noise moves the other way in any two
+runs that sum in another order. The smoke therefore bounds the gradient that
+step hands AdamW (`chip_smoke.first_update_gradient`), relative to its
+largest element. This script measures both floors. For the images made from
+each seed it runs the sample on the CPU (plain versions), on the card
+through the path's kernel route, and on the card through the einsum route
+(no hand-written attention kernel), and prints for each pair the largest
+difference of the adapted logits and of the gradient over its largest
+element; then, per path, the largest and the median over the seeds.
 
 Run from the root of the repository, on a machine with the card:
 
-    python3 tools/torch_card_cpu_noise.py [--path prompt|text] [--seeds 1 12]
+    python3 tools/torch_card_cpu_noise.py [--paths main prompt ...]
+        [--seeds 1 8]
 """
 from __future__ import annotations
 
 import argparse
 import os
+import statistics
 import sys
 
 import torch
@@ -27,14 +32,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
 
-PATHS = {"prompt": (("--lora_encoder", "prompt"), "heads"),
-         "text": (("--lora_encoder", "text"), "per_head")}
+# path: (flags, TTL_FUSED_ATTENTION of its kernel route (None: unset), its
+# key in chip_smoke.GRAD_BOUND_REL)
+PATHS = {"main": ((), None, "main path"),
+         "int8": (("--prefix_quant", "int8"), None, "int8 main path"),
+         "text": (("--lora_encoder", "text"), "per_head", "text-LoRA"),
+         "prompt": (("--lora_encoder", "prompt"), "heads", "prompt tuning"),
+         "tpt_lora": (("--deyo_selection", "False"), None, "TPT on LoRA"),
+         "cocoop": (("--cocoop",), None, "CoCoOp")}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=sorted(PATHS), default="prompt")
-    ap.add_argument("--seeds", type=int, nargs=2, default=(1, 12),
+    ap.add_argument("--paths", choices=sorted(PATHS), nargs="+",
+                    default=list(PATHS))
+    ap.add_argument("--seeds", type=int, nargs=2, default=(1, 8),
                     metavar=("FIRST", "LAST"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -43,31 +55,44 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from ttl_tpu_torch.ops import attention as fa
-    flags, route = PATHS[args.path]
-    cfg = cs.config(*flags)
-    cs.log(f"{args.path} path, kernel route {route}; max |difference of the "
-           f"logits| per image seed (bound in chip_smoke.py: "
-           f"{cs.CARD_CPU_BOUND})")
-    for seed in range(args.seeds[0], args.seeds[1] + 1):
-        logits = {}
-        for name, mode, device in (("cpu", route, "cpu"),
-                                   ("kernel", route, "cuda"),
-                                   ("einsum", "off", "cuda")):
-            with cs.attention_route(fa, mode):
-                logits[name] = cs.sample_step(cfg, image_seed=seed)(
-                    torch.device(device))
+    cs.log(f"{torch.cuda.get_device_name(0)}")
+    for path in args.paths:
+        flags, route, bound_key = PATHS[path]
+        cfg = cs.config(*flags)
+        spread = {"kernel": [], "einsum": []}
+        for seed in range(args.seeds[0], args.seeds[1] + 1):
+            runs = {}
+            for name, mode, device in (("cpu", route, "cpu"),
+                                       ("kernel", route, "cuda"),
+                                       ("einsum", "off", "cuda")):
+                with cs.attention_route(fa, mode):
+                    runs[name] = cs.sample_step(cfg, image_seed=seed)(
+                        torch.device(device))
 
-        def diff(a, b):
-            return (logits[a] - logits[b]).abs().max().item()
+            def logits(name):   # the adapted logits (CoCoOp: second row)
+                return runs[name].logits.reshape(
+                    -1, runs[name].logits.shape[-1])[-1]
 
-        top2 = logits["cpu"].topk(2).values
-        cs.log(f"seed {seed}: kernel vs CPU {diff('kernel', 'cpu'):.4f}, "
-               f"einsum on the card vs CPU {diff('einsum', 'cpu'):.4f}, "
-               f"kernel vs einsum on the card {diff('kernel', 'einsum'):.4f}"
-               f"; top-1 {int(logits['kernel'].argmax())} / "
-               f"{int(logits['einsum'].argmax())} / "
-               f"{int(logits['cpu'].argmax())}, CPU margin to the second "
-               f"{(top2[0] - top2[1]).item():.4f}")
+            def diffs(a):
+                grad = cs.relative_gradient_error(runs[a], runs["cpu"])
+                spread[a].append(grad)
+                return (f"logits {(logits(a) - logits('cpu')).abs().max():.4f}"
+                        f", gradient {grad:.4e}")
+
+            top2 = logits("cpu").topk(2).values
+            cs.log(f"{path}, seed {seed}: kernel vs CPU {diffs('kernel')}; "
+                   f"einsum on the card vs CPU {diffs('einsum')}; top-1 "
+                   f"{int(logits('kernel').argmax())} / "
+                   f"{int(logits('einsum').argmax())} / "
+                   f"{int(logits('cpu').argmax())}, CPU margin to the second "
+                   f"{(top2[0] - top2[1]).item():.4f}")
+        cs.log(f"{path} ({route or 'bshd'} route), gradient vs CPU over "
+               f"seeds {args.seeds[0]}-{args.seeds[1]}: "
+               + "; ".join(f"{name} largest {max(v):.4e}, median "
+                           f"{statistics.median(v):.4e}"
+                           for name, v in spread.items())
+               + f" (bound in chip_smoke.py: "
+               f"{cs.GRAD_BOUND_REL[bound_key]:.4e} of the largest element)")
     return 0
 
 

@@ -232,15 +232,14 @@ int route_of(int dtype, int D) {
 }
 
 // bf16 on the tensor cores: `heads` chooses the grid (a block per head, or
-// a block per batch element that walks its H heads), S the tile heights.
+// a block per batch element that walks its H heads), mma_attention_fwd /
+// _bwd the tile heights.
 template <int D>
 int mma_fwd(bool heads, const void* q, const void* k, const void* v, void* o,
             int B, int H, const Geometry& g, cudaStream_t st) {
   const HeadLayout hl{H, (size_t)H * g.S * D, (size_t)g.S * D};
-  const int groups = heads ? B : B * H, nh = heads ? H : 1;
-  if (g.S <= kMmaShortMax)
-    return mma_launch_fwd<D, MmaShort>(q, k, v, o, groups, nh, hl, g, st);
-  return mma_launch_fwd<D, MmaLong>(q, k, v, o, groups, nh, hl, g, st);
+  return mma_attention_fwd<D>(q, k, v, o, heads ? B : B * H, heads ? H : 1,
+                              hl, g, st);
 }
 
 template <int D>
@@ -248,13 +247,9 @@ int mma_bwd(bool heads, const void* q, const void* k, const void* v,
             const void* dout, void* dq, void* dk, void* dv, void* stats,
             int B, int H, const Geometry& g, cudaStream_t st) {
   const HeadLayout hl{H, (size_t)H * g.S * D, (size_t)g.S * D};
-  const int groups = heads ? B : B * H, nh = heads ? H : 1;
-  const size_t plane = (size_t)B * H * g.S;
-  if (g.S <= kMmaShortMax)
-    return mma_launch_bwd<D, MmaShort>(q, k, v, dout, dq, dk, dv, stats,
-                                       plane, groups, nh, hl, g, st);
-  return mma_launch_bwd<D, MmaLongBwd>(q, k, v, dout, dq, dk, dv, stats,
-                                       plane, groups, nh, hl, g, st);
+  return mma_attention_bwd<D>(q, k, v, dout, dq, dk, dv, stats,
+                              (size_t)B * H * g.S, heads ? B : B * H,
+                              heads ? H : 1, hl, g, st);
 }
 
 int fwd(bool heads, const void* q, const void* k, const void* v, void* o,

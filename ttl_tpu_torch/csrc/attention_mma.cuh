@@ -1,5 +1,6 @@
 // Tensor-core attention for bf16 heads on Hopper (sm_90a): the device code
-// behind the bf16 route of attention_bhsd.cu (K3/K4), forward and backward.
+// behind the bf16 routes of attention_bshd.cu (K1/K2) and attention_bhsd.cu
+// (K3/K4), forward and backward.
 //
 // Every product runs on mma.sync.m16n8k16 (bf16 operands, f32 accumulators),
 // every tile reaches shared memory through cp.async in 16-byte requests, and
@@ -57,12 +58,16 @@
 // causal mask, stages and 16-row blocks that lie wholly on the masked side
 // are skipped.
 //
-// Tile heights per geometry (MmaShort, MmaLong, MmaLongBwd): S <= 32 takes
-// W = 2 warps and stages of 32 rows, so that the text towers' short heads
-// are not paid a 64-row tile half empty; anything longer W = 4, with stages
-// of 64 rows in the forward and of 32 in the backward, whose kernels hold
-// two accumulator tiles and two score blocks a lane: at 64 rows a stage they
-// need 200 to 212 registers a lane and two blocks fit an SM.
+// Tile heights per geometry (MmaShort, MmaLong, MmaWide, MmaLongBwd; the
+// rule is mma_attention_fwd / _bwd at the end): S <= 32 takes W = 2 warps
+// and stages of 32 rows, so that the text towers' short heads are not paid
+// a 64-row tile half empty. Longer heads take stages of 64 rows in the
+// forward, with W = 8 (128 query rows a block) where 128-row tiles cover S
+// with no more padding than 64-row ones (an even number of 64-row tiles:
+// 197, 208, 577, 592 tokens), else W = 4 (64, 257, 272); and W = 4 with
+// stages of 32 rows in the backward, whose kernels hold two accumulator
+// tiles and two score blocks a lane: at 64 rows a stage they need 200 to 212
+// registers a lane and two blocks fit an SM.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -678,8 +683,14 @@ mma_bwd_keys_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // stages in the ring.
 struct MmaShort { static constexpr int kW = 2, kKT = 32, kNS = 2; };  // S <= 32
 struct MmaLong { static constexpr int kW = 4, kKT = 64, kNS = 2; };
+struct MmaWide { static constexpr int kW = 8, kKT = 64, kNS = 2; };
 struct MmaLongBwd { static constexpr int kW = 4, kKT = 32, kNS = 2; };
 constexpr int kMmaShortMax = 32;
+
+// The forward's 128-row tiles pad S no more than 64-row ones do.
+constexpr bool mma_wide_fwd(int S) {
+  return S > kMmaShortMax && (S + 63) / 64 % 2 == 0;
+}
 
 template <int D, typename C>
 int mma_launch_fwd(const void* q, const void* k, const void* v, void* o,
@@ -723,6 +734,34 @@ int mma_launch_bwd(const void* q, const void* k, const void* v,
       qq, kk, vv, dd, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
       static_cast<const float*>(stats), plane, hl, nh, g);
   return (int)cudaGetLastError();
+}
+
+// The launchers' rule, shared by both layouts: `groups` blocks of `nh`
+// heads each, laid out by `hl`; tile heights from S. stats: 3 planes of
+// `plane` f32 (m, l, rs of every row of every head) between the backward's
+// two kernels.
+template <int D>
+int mma_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                      int groups, int nh, const HeadLayout& hl,
+                      const Geometry& g, cudaStream_t st) {
+  if (g.S <= kMmaShortMax)
+    return mma_launch_fwd<D, MmaShort>(q, k, v, o, groups, nh, hl, g, st);
+  if (mma_wide_fwd(g.S))
+    return mma_launch_fwd<D, MmaWide>(q, k, v, o, groups, nh, hl, g, st);
+  return mma_launch_fwd<D, MmaLong>(q, k, v, o, groups, nh, hl, g, st);
+}
+
+template <int D>
+int mma_attention_bwd(const void* q, const void* k, const void* v,
+                      const void* dout, void* dq, void* dk, void* dv,
+                      void* stats, size_t plane, int groups, int nh,
+                      const HeadLayout& hl, const Geometry& g,
+                      cudaStream_t st) {
+  if (g.S <= kMmaShortMax)
+    return mma_launch_bwd<D, MmaShort>(q, k, v, dout, dq, dk, dv, stats,
+                                       plane, groups, nh, hl, g, st);
+  return mma_launch_bwd<D, MmaLongBwd>(q, k, v, dout, dq, dk, dv, stats,
+                                       plane, groups, nh, hl, g, st);
 }
 
 }  // namespace

@@ -86,10 +86,15 @@ def build() -> Path:
         lib = os.path.join(tmp, out.name)
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
         log = os.path.join(tmp, "ptxas.txt")
-        Path(log).write_text("\n".join(logs))
+        Path(log).write_text("\n".join(
+            f"{_SOURCE_MARK}{src.name}\n{text}"
+            for src, text in zip(_sources(), logs)))
         os.replace(log, _resources_path(out))
         os.replace(lib, out)
     return out
+
+
+_SOURCE_MARK = "== source "
 
 
 def _resources_path(lib: Path) -> Path:
@@ -98,19 +103,23 @@ def _resources_path(lib: Path) -> Path:
 
 def kernel_resources(name_part: str = "") -> dict[str, str]:
     """What ptxas reported for each kernel of the built library whose
-    (mangled) name contains `name_part`: {name: 'Used N registers, ...;
-    N bytes spill stores, N bytes spill loads'}."""
+    (mangled) name contains `name_part`: {'source.cu: name': 'Used N
+    registers, ...; N bytes spill stores, N bytes spill loads'}. A header
+    may be compiled into several sources: each has its own entry."""
     lines = _resources_path(build()).read_text().splitlines()
-    found, name, spills = {}, None, ""
+    found, source, name, spills = {}, "", None, ""
     for line in lines:
+        if line.startswith(_SOURCE_MARK):
+            source = line[len(_SOURCE_MARK):]
+            continue
         text = line.split("ptxas info    : ", 1)[-1].strip()
         if text.startswith("Compiling entry function"):
-            name = text.split("'")[1]
+            name, spills = text.split("'")[1], ""
         elif "spill stores" in text:
             spills = text
         elif text.startswith("Used ") and name is not None:
             if name_part in name:
-                found[name] = f"{text}; {spills}"
+                found[f"{source}: {name}"] = f"{text}; {spills}"
             name = None
     return found
 

@@ -25,8 +25,8 @@ kernel's plain PyTorch version (`attention_bshd_plain`,
 `attention_bhsd_plain`), differentiated by autograd. A CUDA tensor goes
 through a `torch.autograd.Function` whose forward and backward are the
 hand-written Hopper kernels in `csrc/attention_bshd.cu` (K1/K2) and
-`csrc/attention_bhsd.cu` (K3/K4: bf16 on the tensor-core bodies of
-`csrc/attention_mma.cuh`, f32 on the FMA bodies); anything the kernels do
+`csrc/attention_bhsd.cu` (K3/K4): bf16 on the tensor-core bodies of
+`csrc/attention_mma.cuh`, f32 on the FMA bodies; anything the kernels do
 not take raises.
 Each wrapper's launch counts (`.fwd_launches`, `.bwd_launches`) grow by one
 at each kernel launch.
@@ -236,17 +236,14 @@ def bshd_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     d = _check_kernel_args((q, k, v, do), heads, seq_len)
     b, s, _ = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # softmax statistics (m, l, rowsum(dP*P)), read and written only by the
-    # key-tiled route
-    stats = None
-    if kernel_route(True, q.dtype, s, d) == "key-tiled FMA":
-        stats = torch.empty(3, b * heads * s, dtype=torch.float32,
-                            device=q.device)
+    # softmax statistics (m, l, rowsum(dP*P)) between the two kernels of the
+    # tensor-core and key-tiled routes
+    stats = torch.empty(3, b * heads * s, dtype=torch.float32,
+                        device=q.device)
     lib = _build.library()
     rc = lib.ttl_bshd_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        None if stats is None else stats.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
         _DTYPE_CODES[q.dtype], b, s, heads, d, seq_len, 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, f"bshd attention backward at S={s}, head dim {d}, "
@@ -259,7 +256,10 @@ ROUTES = ("tensor cores", "whole-head FMA", "key-tiled FMA")
 
 
 def kernel_route(backward: bool, dtype: torch.dtype, s: int, d: int) -> str:
-    """The kernel route a geometry takes on the card (builds the library)."""
+    """The route a K1/K2 geometry takes on the card (builds the library):
+    'tensor cores' for bf16 at every S; for f32 'key-tiled FMA' forward,
+    and backward 'whole-head FMA' where a head fits shared memory, else
+    'key-tiled FMA'."""
     code = _build.library().ttl_bshd_attention_route(
         int(backward), _DTYPE_CODES[dtype], s, d)
     if code < 0:

@@ -49,7 +49,9 @@ def deyo_loss(logits: torch.Tensor, *,
         k = int(n * selection_p)
         keep = torch.zeros_like(ent, dtype=torch.bool)
         if k > 0:
-            idx = torch.topk(-ent, k, dim=-1).indices
+            # equal entropies go to the lower index, as jax.lax.top_k on the
+            # negated entropies orders them
+            idx = torch.argsort(ent, dim=-1, stable=True)[..., :k]
             keep = keep.scatter(-1, idx, True)
     else:
         keep = ent <= LOG1000

@@ -18,7 +18,9 @@ def topk_counts(logits: torch.Tensor, labels: torch.Tensor,
     per-k counts of valid rows whose label is among the k highest logits,
     then the number of valid rows."""
     ks = min(max(topk), logits.shape[-1])
-    pred = torch.topk(logits.float(), ks, dim=-1).indices
+    # a stable sort of the negated logits: equal logits go to the lower
+    # index, as jax.lax.top_k orders them (torch.topk promises no order)
+    pred = torch.argsort(-logits.float(), dim=-1, stable=True)[:, :ks]
     hit = (pred == labels[:, None]) & valid[:, None]
     per_k = [hit[:, :k].any(dim=1).sum() for k in topk]
     return torch.stack(per_k + [valid.sum()]).to(torch.int32)

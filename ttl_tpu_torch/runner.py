@@ -17,12 +17,19 @@ counts on the device.
 The loader's prefetch thread makes each batch's random view draws and, for
 a CUDA device, copies the batch to the device from pinned memory on a
 side stream, so the upload overlaps the previous step's compute; the step
-waits on that copy's event before it reads the batch.
+waits on that copy's event before it reads the batch. Two A/B switches, read
+as the reference reads them: `TTL_UPLOAD_OVERLAP=0` makes the draws and the
+upload in the main thread, on the current stream, just before each
+dispatch; `TTL_CANVAS_BUCKETS=0` keeps every batch of an auto-canvas run
+(`--canvas 0`) at the full canvas instead of the smallest ladder size that
+fits it (`data/views.py`). Neither changes a result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import time
 from typing import Dict, List, NamedTuple, Optional
 
@@ -98,12 +105,20 @@ class DeviceBatch(NamedTuple):
                 *self.draws.values()]
 
 
-def _make_upload(cfg: TTLConfig, device, batch_size: int):
-    """The loader transform: SampleBatch -> DeviceBatch, run in the loader's
-    prefetch thread. Zero-shot draws no random views; CoCoOp renders its
+def _switched_on(name: str) -> bool:
+    """An A/B switch of the reference's runner: on unless set to '0'."""
+    return os.environ.get(name, "1") != "0"
+
+
+def _make_upload(cfg: TTLConfig, device, batch_size: int,
+                 overlap: bool = True):
+    """SampleBatch -> DeviceBatch. With `overlap` it is the loader's
+    transform, run in the prefetch thread, and copies on a side stream;
+    without, the caller runs it just before the dispatch and it copies on
+    the current stream. Zero-shot draws no random views; CoCoOp renders its
     views whatever `tta_steps` is."""
-    copy_stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                   else None)
+    on_card = device.type == "cuda"
+    copy_stream = torch.cuda.Stream(device) if on_card and overlap else None
 
     def upload(b) -> DeviceBatch:
         host = DeviceBatch(
@@ -114,16 +129,19 @@ def _make_upload(cfg: TTLConfig, device, batch_size: int):
             torch.from_numpy(b.labels.astype(np.int64)),
             torch.from_numpy(np.arange(batch_size) < batch_size - b.pad),
             None)
-        if copy_stream is None:
+        if not on_card:
             return host
-        with torch.cuda.stream(copy_stream):
+        stream = copy_stream or torch.cuda.current_stream(device)
+        with torch.cuda.stream(stream):
             def put(t):
                 return t.pin_memory().to(device, non_blocking=True)
             moved = DeviceBatch(
                 put(host.canvases), put(host.hs), put(host.ws),
                 {k: put(t) for k, t in host.draws.items()},
-                put(host.labels), put(host.valid), torch.cuda.Event())
-            moved.ready.record(copy_stream)
+                put(host.labels), put(host.valid),
+                torch.cuda.Event() if copy_stream else None)
+            if copy_stream:
+                moved.ready.record(copy_stream)
         return moved
 
     return upload
@@ -195,11 +213,14 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
         dataset = build_dataset(set_id, cfg)
     canvas = cfg.canvas if cfg.canvas > 0 else \
         (getattr(dataset, "max_image_dim", None) or DEFAULT_CANVAS)
+    overlap = _switched_on("TTL_UPLOAD_OVERLAP")
+    upload = _make_upload(cfg, device, cfg.sample_batch, overlap)
     loader = SampleLoader(
         dataset, batch_size=cfg.sample_batch, shuffle=True, seed=cfg.seed,
-        canvas=canvas, bucket_canvas=cfg.canvas == 0,
+        canvas=canvas,
+        bucket_canvas=cfg.canvas == 0 and _switched_on("TTL_CANVAS_BUCKETS"),
         max_samples=max_samples, workers=cfg.workers,
-        transform=_make_upload(cfg, device, cfg.sample_batch))
+        transform=upload if overlap else None)
     if cfg.cocoop:
         # whatever tta_steps is: the reference's final inference ignores the
         # adapted ctx, so `logits` is the conditioned, unadapted prediction
@@ -253,7 +274,28 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
     progress = ProgressMeter(len(loader), [batch_time, top1, top5],
                              prefix="Test: ")
 
-    def dispatch(b: DeviceBatch) -> torch.Tensor:
+    n_classes = len(resolve_classnames(set_id))
+
+    @contextlib.contextmanager
+    def oom_hint():
+        """A device out-of-memory error names the one switch that helps.
+        It can come at the dispatch or, the step running asynchronously,
+        when `drain` reads the counts."""
+        try:
+            yield
+        except RuntimeError as e:
+            if not (isinstance(e, torch.cuda.OutOfMemoryError)
+                    or "out of memory" in str(e).lower()):
+                raise
+            raise RuntimeError(
+                f"device out of memory on the {set_id} step at "
+                f"sample_batch={cfg.sample_batch} with {n_classes} classes; "
+                "reduce --sample_batch (per-sample results do not depend on "
+                "it)") from e
+
+    def dispatch(b) -> torch.Tensor:
+        if not overlap:
+            b = upload(b)
         if b.ready is not None:
             stream = torch.cuda.current_stream(device)
             stream.wait_event(b.ready)
@@ -274,14 +316,15 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
     depth = max(1, cfg.pipeline_depth)
     in_flight = []
     end = time.time()
-    for i, b in enumerate(loader):
-        in_flight.append((i, dispatch(b)))
-        if len(in_flight) > depth:
-            drain(*in_flight.pop(0))
+    with oom_hint():
+        for i, b in enumerate(loader):
+            in_flight.append((i, dispatch(b)))
+            if len(in_flight) > depth:
+                drain(*in_flight.pop(0))
+                end = time.time()
+        for item in in_flight:
+            drain(*item)
             end = time.time()
-    for item in in_flight:
-        drain(*item)
-        end = time.time()
     progress.display_summary()
     return [top1.avg, top5.avg]
 
