@@ -29,8 +29,10 @@ per source, side by side), then:
    against their plain versions, and the route each takes: bf16 the tensor
    cores at every length, f32 the FMA routes;
 7. K5, the int8 linear, against `linear_q_plain` on the card at the main
-   path's shapes (bit for bit), with the bf16 `linear` it replaces timed
-   beside it;
+   path's shapes and zero-shot's [1664, 768] x [768, 768] (bit for bit),
+   with the bf16 `linear` it replaces timed beside it; at the main path's
+   bf16 shapes the time of each of its three launches and, at fc1 on no
+   path, `torch._int_mm` on the same codes;
 8. the int8 main path: phase 4 with `--prefix_quant int8` (54 K5, 15 K1
    and 3 K2 launches per batch);
 9. zero-shot: `--tta_steps 0 --prefix_quant int8 --ensemble` (72 K5, 12 K1
@@ -123,10 +125,14 @@ OTHER_FWD = [(16, 592, 577, 16, 1024, torch.bfloat16),
              (64, 272, 257, 16, 1024, torch.bfloat16),
              (512, 64, 50, 12, 768, torch.bfloat16)]
 OTHER_BWD = OTHER_FWD + [(16, 272, 257, 16, 1024, torch.float32)]
-# K5 at the main path's shapes: T = 512 views x 208 tokens
+# K5 at the main path's shapes, T = 512 views x 208 tokens, and at
+# zero-shot's q, k, v and o, T = 8 center views x 208: (T, K, N, dtype)
 K5_ROWS = 512 * SEQ_PAD
-K5_SHAPES = [(768, 768, torch.bfloat16), (768, 3072, torch.bfloat16),
-             (3072, 768, torch.bfloat16), (768, 768, torch.float32)]
+K5_FC1 = (K5_ROWS, 768, 3072, torch.bfloat16)
+K5_SHAPES = [(K5_ROWS, 768, 768, torch.bfloat16), K5_FC1,
+             (K5_ROWS, 3072, 768, torch.bfloat16),
+             (K5_ROWS, 768, 768, torch.float32),
+             (8 * SEQ_PAD, 768, 768, torch.bfloat16)]
 # card (bf16, kernels, cuBLAS) against CPU (bf16, plain version): both round
 # every activation to bf16 but accumulate in different orders through 12
 # layers. Logits are 100 x a cosine; with random weights |logits| < 2, where
@@ -498,14 +504,45 @@ def phase_other_geometries(fa) -> dict:
     return out
 
 
+def k5_launch_ms(tq, x, pq, reps: int = 5, tries: int = 3):
+    """Device ms of each of K5's launches within one call at x's shape,
+    averaged over the launches of `reps` calls (torch.profiler): (Q)
+    `quant_rows`, (W) `transpose_w`, (G) `gemm`. A profiler run in a
+    process that has run others may record no kernel at all: it is run
+    again, and after `tries` empty runs the result is None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    tq.linear_q(x, pq)
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                tq.linear_q(x, pq)
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            found = re.search(r"k5_(\w+?)_kernel", e.key)
+            if e.device_type == DeviceType.CUDA and found:
+                # per launch the profiler kept (it may miss a call's)
+                out[found.group(1)] = (e.self_device_time_total / 1e3
+                                       / e.count)
+        if set(out) == {"quant_rows", "transpose_w", "gemm"}:
+            return out
+    return None
+
+
 def phase_k5(tq) -> dict:
     """K5 against linear_q_plain on the card (bit for bit) and the bf16
-    linear it replaces, at the main path's shapes."""
+    linear it replaces, at K5_SHAPES; at the main path's bf16 shapes the
+    time of each of its launches, and at fc1 `torch._int_mm` (cuBLASLt's
+    int8 product, int32 out, on no path) on the same codes and K-major
+    weight beside (G)."""
     from ttl_tpu_torch.models.clip import linear
     g = torch.Generator().manual_seed(SEED + 5)
     results = {}
-    for k, n, dtype in K5_SHAPES:
-        x = torch.randn(K5_ROWS, k, generator=g).to("cuda", dtype)
+    for t, k, n, dtype in K5_SHAPES:
+        x = torch.randn(t, k, generator=g).to("cuda", dtype)
         p = {"w": (torch.randn(k, n, generator=g) * 0.02).cuda(),
              "b": (torch.randn(n, generator=g) * 0.02).cuda()}
         pq = tq.quantize_linear(p)
@@ -515,21 +552,43 @@ def phase_k5(tq) -> dict:
         err = (got.float() - want.float()).abs().max().item()
         ms = median_ms(lambda: tq.linear_q(x, pq))
         plain_ms = median_ms(lambda: tq.linear_q_plain(x, pq), reps=5)
-        pf = {name: t.to(dtype) for name, t in p.items()}
+        pf = {name: w.to(dtype) for name, w in p.items()}
         linear_ms = median_ms(lambda: linear(x, pf))
-        log(f"K5 [{K5_ROWS}, {k}] x [{k}, {n}] {dtype}: max_abs_err {err} "
+        log(f"K5 [{t}, {k}] x [{k}, {n}] {dtype}: max_abs_err {err} "
             f"(bound 0), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"{dtype} linear {linear_ms:.4f} ms")
         if err != 0.0 or not torch.equal(got, want):
             raise AssertionError(f"K5 differs from linear_q_plain: {err}")
         itemsize = x.element_size()
-        results[(k, n, dtype)] = {
+        results[(t, k, n, dtype)] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "linear_ms": linear_ms,
             # x read, wq (int8) with its f32 column scales and bias read,
             # y written; 2*T*K*N int8 operations
-            **bound(K5_ROWS * (k + n) * itemsize + k * n + 8 * n,
-                    2 * K5_ROWS * k * n, torch.int8)}
+            **bound(t * (k + n) * itemsize + k * n + 8 * n,
+                    2 * t * k * n, torch.int8)}
+        if dtype == torch.bfloat16 and t == K5_ROWS:
+            launch = k5_launch_ms(tq, x, pq)
+            log(f"K5 [{t}, {k}] x [{k}, {n}] per launch (torch.profiler): "
+                + ("not measured (the profiler recorded no kernel)"
+                   if launch is None else
+                   f"(Q) quant_rows {launch['quant_rows']:.4f} ms, (W) "
+                   f"transpose_w {launch['transpose_w']:.4f} ms ("
+                   f"{100 * launch['transpose_w'] / sum(launch.values()):.2f}"
+                   f"% of the three), (G) gemm {launch['gemm']:.4f} ms ("
+                   f"{2e-9 * t * k * n / launch['gemm']:.1f} TOP/s)"))
+            results[(t, k, n, dtype)]["launch_ms"] = launch
+        if (t, k, n, dtype) == K5_FC1:
+            codes = torch.clamp(torch.round((x / tq._row_scale(x)).float()),
+                                -127, 127).to(torch.int8)
+            wt = pq["wq"].t().contiguous()
+            int_mm_ms = median_ms(lambda: torch._int_mm(codes, wt.t()))
+            log(f"K5 at fc1: torch._int_mm on the same codes and K-major "
+                f"weight {int_mm_ms:.4f} ms "
+                f"({2e-9 * t * k * n / int_mm_ms:.1f} TOP/s, int32 out, on "
+                "no path)")
+            results[(t, k, n, dtype)]["int_mm_ms"] = int_mm_ms
+            del codes, wt
         del x, got, want
     return results
 
@@ -1092,6 +1151,9 @@ def main() -> int:
         log(f"  {source} " + re.sub(
             r".*(mma_\w+?)ILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E.*",
             r"\1<\2, \3, \4, \5>", name) + ": " + used)
+    log("ptxas on K5's kernels (quant_matmul.cu):")
+    for key, used in sorted(_build.kernel_resources("k5_").items()):
+        log(f"  {key.split(': ', 1)[1]}: {used}")
 
     fwd = phase_forward(fa)
     bwd = phase_backward(fa)
@@ -1154,7 +1216,7 @@ def main() -> int:
 
     src = "ttl_tpu_torch/csrc/attention_bshd.cu"
     bhsd_src = "ttl_tpu_torch/csrc/attention_bhsd.cu"
-    fc1 = k5[(768, 3072, torch.bfloat16)]
+    fc1 = k5[K5_FC1]
     k6_fc1 = k6[(K6_ROWS, 768, 3072, torch.bfloat16)]
 
     def other_shapes(kind):
@@ -1200,10 +1262,11 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in k5.values()),
          "ms": fc1["ms"], "plain_ms": fc1["plain_ms"],
          "bound_ms": fc1["bound_ms"], "bound_by": fc1["bound_by"],
-         "library_ms": fc1["linear_ms"],
+         "library_ms": fc1["linear_ms"], "int_mm_ms": fc1["int_mm_ms"],
+         "launch_ms": fc1["launch_ms"],
          "launches_by_path": by_path("K5"),
-         "shapes": {f"[{K5_ROWS}, {k}] x [{k}, {n}] {d}": r
-                    for (k, n, d), r in k5.items()}},
+         "shapes": {f"[{t}, {k}] x [{k}, {n}] {d}": r
+                    for (t, k, n, d), r in k5.items()}},
         {"name": "ln_matmul", "route": "cuda",
          "source": "ttl_tpu_torch/csrc/ln_matmul.cu",
          "replaces": "ttl_tpu/ops/ln_matmul.py:38",

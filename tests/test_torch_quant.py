@@ -17,6 +17,10 @@
   max_t(s_t) * max|w|. The bound is 8 quanta of the widest linear per layer
   (the downstream gains of these weights stay below 8: checked); per layer,
   at least 90 % of the elements must also agree to f32 noise.
+- K5's three launches emulated on the CPU (row codes and scales, the
+  zero-padded K, the K-major weight, the tile walk with int32 sums per K
+  step, the fragments of `mma.sync` m16n8k32) equal `linear_q_plain` bit
+  for bit, and at f32 JAX's `linear_q`.
 - K5 on the card equals `linear_q_plain` on the card bit for bit.
 """
 from fractions import Fraction
@@ -326,6 +330,217 @@ def test_encode_image_refuses_a_resnet_tower():
         tclip.encode_image({}, torch.zeros(1, 3, 8, 8), object())
 
 
+# --------------------------------------- K5's launches, emulated on the CPU
+#
+# csrc/quant_matmul.cu runs (Q) one pass per row of x into its scale and
+# int8 codes xq [T, Kp], (W) wq copied to wt [N, Kp], K-major, and (G) the
+# product over 128 x 128 output tiles in 128-byte K steps, int32 sums, with
+# the epilogue fused. The emulation below follows those steps on the CPU: what
+# the kernel's arithmetic, padding and tile walk give, the plain version
+# must give too.
+
+K_STEP = 128  # csrc/quant_matmul.cu kBK: the ring's K step and Kp's
+TILE_M = 128  # the BM of (G)'s launch
+TILE_N = 128  # kBN
+
+
+def _bf16(v):
+    return v.bfloat16().float()
+
+
+def emulate_k5_quant_rows(x):
+    """(Q): per row the f32 absmax, the row scale and quotient as the
+    kernel's `Num<T>` forms them, the codes padded with zeros to Kp."""
+    t, k = x.shape
+    kp = -(-k // K_STEP) * K_STEP
+    xf = x.float()
+    amax = xf.abs().amax(dim=1)
+    inv127 = torch.ones(()) / 127
+    if x.dtype == torch.bfloat16:
+        s = _bf16(torch.maximum(amax, _bf16(torch.tensor(1e-12)))
+                  * _bf16(inv127))
+        quot = _bf16(xf / s[:, None])
+    else:
+        s = torch.maximum(amax, torch.tensor(1e-12)) * inv127
+        quot = xf / s[:, None]
+    xq = torch.zeros(t, kp, dtype=torch.int8)
+    xq[:, :k] = torch.clamp(torch.round(quot), -127, 127).to(torch.int8)
+    return xq, s
+
+
+def emulate_k5_transpose_w(wq, kp):
+    """(W): wq [K, N] to wt [N, Kp], zero past K."""
+    wt = torch.zeros(wq.shape[1], kp, dtype=torch.int8)
+    wt[:, :wq.shape[0]] = wq.T
+    return wt
+
+
+def emulate_k5(x, pq, bm=TILE_M):
+    """K5 on the CPU: (Q), (W), then (G) block by block. Rows past T and
+    columns past N re-read the last one, as the kernel's clamped loads do,
+    and are never stored; each 64-byte K step adds an exact int32 product."""
+    t, n = x.shape[0], pq["wq"].shape[1]
+    xq, s = emulate_k5_quant_rows(x)
+    kp = xq.shape[1]
+    wt = emulate_k5_transpose_w(pq["wq"], kp)
+    b = pq.get("b", torch.zeros(n))
+    y = torch.full((t, n), float("nan"), dtype=x.dtype)
+    for t0 in range(0, t, bm):
+        rows = torch.clamp(torch.arange(t0, t0 + bm), max=t - 1)
+        for n0 in range(0, n, TILE_N):
+            cols = torch.clamp(torch.arange(n0, n0 + TILE_N), max=n - 1)
+            acc = torch.zeros(bm, TILE_N, dtype=torch.int32)
+            for k0 in range(0, kp, K_STEP):
+                acc += (xq[rows, k0:k0 + K_STEP].int()
+                        @ wt[cols, k0:k0 + K_STEP].int().T)
+            step = s[rows][:, None] * pq["scale"][cols][None, :]
+            out = tq.fma_f32(acc.float(), step,
+                             b[cols][None, :].expand(bm, -1)).to(x.dtype)
+            nr, nc = min(bm, t - t0), min(TILE_N, n - n0)
+            y[t0:t0 + nr, n0:n0 + nc] = out[:nr, :nc]
+    return y
+
+
+def _k5_case(t, k, n, dtype, seed, zero_rows=(1,)):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((t, k)) * rng.uniform(0.1, 5.0)).astype(
+        np.float32)
+    for r in zero_rows:
+        if r < t:
+            x[r] = 0.0   # the 1e-12 clamp, every code 0
+    p = _linear(rng, k, n)
+    return x, p, torch.from_numpy(x).to(dtype), tq.quantize_linear(
+        _both(p)[1])
+
+
+@pytest.mark.parametrize("t,k,n,dtype", [
+    (37, 96, 48, torch.float32),      # one ragged tile each way
+    (200, 80, 144, torch.bfloat16),   # two row blocks, N past a tile
+    (300, 48, 272, torch.float32),    # ragged row blocks, K < one step
+    (1, 16, 16, torch.bfloat16),      # one row, the smallest K and N
+    (70, 160, 208, torch.bfloat16),   # K past one step, N = 16 x 13
+])
+def test_k5_emulation_matches_plain(t, k, n, dtype):
+    x, _, xt, pq = _k5_case(t, k, n, dtype, seed=t + k, zero_rows=(1, t - 1))
+    got = emulate_k5(xt, pq)
+    want = tq.linear_q_plain(xt, pq)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_emulation_quant_rows_and_weight(dtype):
+    """(Q)'s scales and codes are the plain version's, the tail past K is
+    zero codes; (W)'s wt is wq transposed, zero past K."""
+    _, _, xt, pq = _k5_case(21, 80, 32, dtype, seed=4)
+    xq, s = emulate_k5_quant_rows(xt)
+    assert xq.shape == (21, K_STEP)
+    plain_s = tq._row_scale(xt)
+    assert torch.equal(s, plain_s.float()[:, 0])
+    plain_q = torch.clamp(torch.round((xt / plain_s).float()), -127, 127)
+    assert torch.equal(xq[:, :80].float(), plain_q)
+    assert not xq[:, 80:].any() and not xq[1].any()
+    wt = emulate_k5_transpose_w(pq["wq"], K_STEP)
+    assert torch.equal(wt[:, :80], pq["wq"].T) and not wt[:, 80:].any()
+
+
+def test_k5_emulation_matches_jax_and_pallas_at_f32():
+    """At f32 the emulated kernel equals JAX's `linear_q` bit for bit, and
+    the Pallas kernel (interpret mode; it divides by 127 where `linear_q`
+    multiplies by 1/127) within its own test's atol."""
+    x, p, xt, pq = _k5_case(48, 128, 272, torch.float32, seed=11)
+    pj = _both(p)[0]
+    qj = jq.quantize_linear(pj)
+    got = emulate_k5(xt, pq).numpy()
+    want = np.asarray(jax.jit(jq.linear_q)(jnp.asarray(x), qj))
+    np.testing.assert_array_equal(got, want)
+    pallas = np.asarray(quantized_matmul(jnp.asarray(x), qj["wq"],
+                                         qj["scale"][None, :],
+                                         qj["b"][None, :], tm=16))
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=1e-5)
+
+
+def _ldmatrix_x4(tile, lane_addr):
+    """ldmatrix.x4 over a byte tile: lane l names (row, byte) of row l % 8
+    of 8 x 16-byte block l // 8; register m of lane l gets bytes
+    4 (l % 4) .. + 3 of row l // 4 of block m, as an int8 [4]."""
+    regs = np.zeros((32, 4, 4), np.int8)
+    for m in range(4):
+        for lane in range(32):
+            row, col = lane_addr[8 * m + lane // 4]
+            regs[lane, m] = tile[row, col + 4 * (lane % 4):
+                                 col + 4 * (lane % 4) + 4]
+    return regs
+
+
+def _mma_m16n8k32(acc, a, b0, b1):
+    """mma.sync m16n8k32 s8 in PTX's fragment layout, g = lane / 4,
+    q = lane % 4: A a0 (g, 4q..) a1 (g+8, 4q..) a2 (g, 16+4q..) a3 (g+8,
+    16+4q..); B b0 (k 4q.., n g) b1 (k 16+4q.., n g); C c0 c1 (g, 2q, 2q+1)
+    c2 c3 (g+8, 2q, 2q+1)."""
+    am = np.zeros((16, 32), np.int64)
+    bm = np.zeros((32, 8), np.int64)
+    for lane in range(32):
+        g, q = divmod(lane, 4)
+        for reg, (r, c) in enumerate([(g, 4 * q), (g + 8, 4 * q),
+                                      (g, 16 + 4 * q), (g + 8, 16 + 4 * q)]):
+            am[r, c:c + 4] = a[lane, reg]
+        bm[4 * q:4 * q + 4, g] = b0[lane]
+        bm[16 + 4 * q:16 + 4 * q + 4, g] = b1[lane]
+    cm = am @ bm
+    for lane in range(32):
+        g, q = divmod(lane, 4)
+        acc[lane] += [cm[g, 2 * q], cm[g, 2 * q + 1], cm[g + 8, 2 * q],
+                      cm[g + 8, 2 * q + 1]]
+
+
+@pytest.mark.parametrize("bm,warps_m,warps_n", [
+    (TILE_M, 2, 2),   # the launch's tile
+    (64, 2, 4),       # another the template takes
+])
+def test_k5_fragment_walk_covers_the_tile(bm, warps_m, warps_n):
+    """k5_gemm_kernel's lane addresses for ldmatrix_x4 on both operands, the
+    mma_s8 fragments they make, and the epilogue's (row, column) of every
+    accumulator, over one K step: each output of the BM x 128 tile is
+    written once and equals the tile's int8 product."""
+    rng = np.random.default_rng(bm)
+    a = rng.integers(-127, 128, (bm, K_STEP), dtype=np.int8)
+    b = rng.integers(-127, 128, (TILE_N, K_STEP), dtype=np.int8)
+    rows, cols = bm // warps_m, TILE_N // warps_n   # a warp's tile
+    mi, nj = rows // 16, cols // 8
+    out = np.zeros((bm, TILE_N), np.int64)
+    written = np.zeros((bm, TILE_N), np.int64)
+    for warp in range(warps_m * warps_n):
+        wm, wn = divmod(warp, warps_n)
+        acc = np.zeros((mi, nj, 32, 4), np.int64)
+        for kk in range(0, K_STEP, 32):
+            af = [_ldmatrix_x4(a, [(wm * rows + i * 16 + lane % 16,
+                                    kk + (lane // 16) * 16)
+                                   for lane in range(32)])
+                  for i in range(mi)]
+            bf = [_ldmatrix_x4(b, [(wn * cols + (lane // 16) * 8 + lane % 8
+                                    + p * 16, kk + ((lane // 8) % 2) * 16)
+                                   for lane in range(32)])
+                  for p in range(nj // 2)]
+            for i in range(mi):
+                for j in range(nj):
+                    _mma_m16n8k32(acc[i, j], af[i], bf[j // 2][:, (j % 2) * 2],
+                                  bf[j // 2][:, (j % 2) * 2 + 1])
+        for lane in range(32):
+            g, q = divmod(lane, 4)
+            for i in range(mi):
+                for hr in range(2):
+                    r = wm * rows + i * 16 + g + 8 * hr
+                    for j in range(nj):
+                        for h in range(2):
+                            c = wn * cols + j * 8 + 2 * q + h
+                            out[r, c] = acc[i, j, lane, 2 * hr + h]
+                            written[r, c] += 1
+    assert (written == 1).all()
+    np.testing.assert_array_equal(out, a.astype(np.int64) @ b.T.astype(
+        np.int64))
+
+
 # ------------------------------------------------- K5 (needs the card)
 
 @pytest.fixture
@@ -342,12 +557,19 @@ def cuda_device():
     (333, 3072, 768, torch.bfloat16),
     (130, 768, 768, torch.float32),
     (7, 48, 80, torch.float32),          # K, N not multiples of the tiles
+    (1, 768, 768, torch.bfloat16),       # one row
+    (50, 16, 64, torch.bfloat16),        # K = 16: one K step, mostly zeros
+    (70, 80, 112, torch.float32),        # K = 80: not a multiple of 32
+    (40, 96, 16, torch.bfloat16),        # N = 16: one eighth of a tile
+    (300, 768, 784, torch.bfloat16),     # N = 784: not a multiple of 128
+    (1664, 768, 768, torch.bfloat16),    # zero-shot's rows
 ])
 def test_k5_matches_plain_on_card(cuda_device, t, k, n, dtype):
     rng = np.random.default_rng(t)
     x = torch.from_numpy(rng.standard_normal((t, k)).astype(np.float32)
                          * 3).to(cuda_device, dtype)
-    x[1] = 0   # the 1e-12 clamp
+    if t > 1:
+        x[1] = 0   # the 1e-12 clamp
     pq = tq.quantize_linear({
         "w": torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)
                               * 0.05).to(cuda_device),
@@ -360,3 +582,26 @@ def test_k5_matches_plain_on_card(cuda_device, t, k, n, dtype):
     assert tq.linear_q.launches == 1
     assert got.dtype == dtype and got.shape == (t, n)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k5_rows_of_zeros_on_card(cuda_device, dtype):
+    """Rows of zeros (scale 1e-12 * (1/127), every code 0, y = b) at the
+    first row, inside a tile and as the last, ragged row."""
+    rng = np.random.default_rng(5)
+    t, k, n = 131, 256, 144
+    x = torch.from_numpy(rng.standard_normal((t, k)).astype(np.float32)).to(
+        cuda_device, dtype)
+    x[[0, 64, t - 1]] = 0
+    pq = tq.quantize_linear({
+        "w": torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)
+                              * 0.05).to(cuda_device),
+        "b": torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+            cuda_device)})
+    got = tq.linear_q(x, pq)
+    want = tq.linear_q_plain(x, pq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[[0, 64, t - 1]].float(),
+                       pq["b"].to(dtype).float().expand(3, -1))

@@ -145,8 +145,11 @@ def library() -> ctypes.CDLL:
         bwd.restype = i
     lib.ttl_bhsd_attention_route.argtypes = [i, i]
     lib.ttl_bhsd_attention_route.restype = i
-    lib.ttl_quant_matmul.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    ll = ctypes.c_longlong
+    lib.ttl_quant_matmul.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, p]
     lib.ttl_quant_matmul.restype = i
+    lib.ttl_quant_matmul_scratch_bytes.argtypes = [i, i, i]
+    lib.ttl_quant_matmul_scratch_bytes.restype = ll
     lib.ttl_ln_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
     lib.ttl_ln_matmul.restype = i
     lib.ttl_ln_matmul_max_k.argtypes = [i]

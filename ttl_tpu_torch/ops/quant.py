@@ -7,9 +7,17 @@ epilogue y = acc * (row_scale * col_scale) + b, cast back to x's dtype.
 
 `linear_q` dispatches on the device of x. A CPU tensor takes
 `linear_q_plain`, which follows the JAX `linear_q` step by step. A CUDA
-tensor launches K5, the hand-written int8 kernel in `csrc/quant_matmul.cu`,
+tensor goes to K5, the hand-written int8 kernel in `csrc/quant_matmul.cu`,
 which equals `linear_q_plain` bit for bit; anything it does not take
-raises. `linear_q.launches` grows by one at each kernel launch.
+raises. K5 is three launches into scratch the wrapper allocates: (Q) one
+pass per row of x that writes its scale and its int8 codes, K padded with
+zero codes to the product's 128-byte K step; (W) the int8 weight copied to
+K-major order [N, Kp]; (G) the product on the tensor cores (`mma.sync`
+m16n8k32 int8 fed by a `cp.async` ring) with the epilogue fused.
+`linear_q.launches` grows by one at each call of K5, whatever its launches.
+Against the bf16 `linear` it stands in for, on an H100 at the main path's
+shapes (`PERF.md`): faster at K = 768 (q, k, v, o and fc1), slower at fc2
+(K = 3072), where (Q) alone reads and writes about 1 GB.
 """
 from __future__ import annotations
 
@@ -84,8 +92,9 @@ def linear_q_plain(x: torch.Tensor, pq: Params) -> torch.Tensor:
 def quantized_matmul_cuda(x: torch.Tensor, wq: torch.Tensor,
                           scale: torch.Tensor, b: torch.Tensor
                           ) -> torch.Tensor:
-    """Launch K5 on the current stream: x [T, K] bf16/f32, wq [K, N] int8,
-    scale and b [N] f32 -> [T, N] in x's dtype."""
+    """Run K5 on the current stream: x [T, K] bf16/f32, wq [K, N] int8,
+    scale and b [N] f32 -> [T, N] in x's dtype. The scratch (x's codes and
+    row scales, wq in K-major order) is allocated here, once per call."""
     if x.dim() != 2 or wq.dim() != 2:
         raise ValueError(f"expected x [T, K] and wq [K, N], got "
                          f"{tuple(x.shape)} and {tuple(wq.shape)}")
@@ -111,10 +120,14 @@ def quantized_matmul_cuda(x: torch.Tensor, wq: torch.Tensor,
     if k % 16 or n % 16 or t == 0:
         raise ValueError(f"K5 takes K and N multiples of 16 and T > 0, got "
                          f"T={t}, K={k}, N={n}")
+    lib = _build.library()
     y = torch.empty(t, n, dtype=x.dtype, device=x.device)
-    rc = _build.library().ttl_quant_matmul(
+    scratch = torch.empty(lib.ttl_quant_matmul_scratch_bytes(t, k, n),
+                          dtype=torch.uint8, device=x.device)
+    rc = lib.ttl_quant_matmul(
         x.data_ptr(), wq.data_ptr(), scale.data_ptr(), b.data_ptr(),
-        y.data_ptr(), _DTYPE_CODES[x.dtype], t, k, n,
+        y.data_ptr(), scratch.data_ptr(), scratch.numel(),
+        _DTYPE_CODES[x.dtype], t, k, n,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, f"int8 matmul at T={t}, K={k}, N={n}, {x.dtype}")
     linear_q.launches += 1
