@@ -71,7 +71,9 @@ per source, side by side), then:
    ([106496, 768] x [768, 768] and x [768, 3072] bf16), the text width, one
    f32 shape and a ragged M with rows of zeros, with `F.layer_norm` followed
    by `F.linear` (a pair of library calls, on no path) and the package's own
-   `layer_norm` + `linear` timed beside it;
+   `layer_norm` + `linear` timed beside it, and the achieved TFLOP/s; ptxas
+   on its kernels (no spills in the wgmma ones); at fc1 two calls on the
+   same inputs must give the same bits;
 19. `--cocoop` on the default route through `runner.run`: the frozen vision
    tower over all 12 layers and 64 views through K6 (48 launches per batch)
    and K1 (12), no other kernel;
@@ -193,8 +195,8 @@ BHSD_ODD = [(3, 4, 1, 64, False), (3, 4, 21, 64, True), (2, 4, 37, 64, False),
 # tower's width (1600 prompts x 32 tokens), one f32 shape, and a ragged M
 # (prime, so a multiple of no row tile) with rows of zeros: (M, K, N, dtype)
 K6_ROWS = 512 * SEQ_PAD
-K6_SHAPES = [(K6_ROWS, 768, 768, torch.bfloat16),
-             (K6_ROWS, 768, 3072, torch.bfloat16),
+K6_FC1 = (K6_ROWS, 768, 3072, torch.bfloat16)
+K6_SHAPES = [(K6_ROWS, 768, 768, torch.bfloat16), K6_FC1,
              (1600 * 32, 512, 2048, torch.bfloat16),
              (8192, 768, 768, torch.float32),
              (10007, 768, 3072, torch.bfloat16)]
@@ -597,9 +599,20 @@ def phase_k6(tlm) -> dict:
     """K6 against ln_matmul_plain on the card at K6_SHAPES, with the pair of
     library calls that computes the same function (F.layer_norm, F.linear;
     w transposed to F.linear's layout outside the timing) and the package's
-    own layer_norm + linear, the pair K6 stands in for, timed beside it."""
+    own layer_norm + linear, the pair K6 stands in for, timed beside it;
+    ptxas's registers, shared memory and spills of its kernels first (the
+    wgmma kernels may spill nothing), the achieved rate at every shape, and
+    at fc1 a second call on the same inputs, which must give the same
+    bits."""
     from ttl_tpu_torch.models.clip import layer_norm, linear
+    from ttl_tpu_torch.ops import _build
     F = torch.nn.functional
+    log("ptxas on K6's kernels (ln_matmul.cu):")
+    for key, used in sorted(_build.kernel_resources("ln_matmul").items()):
+        log(f"  {key.split(': ', 1)[1]}: {used}")
+        if "wgmma" in key and not re.search(
+                r"\b0 bytes spill stores, 0 bytes spill loads", used):
+            raise AssertionError(f"K6's {key} spills: {used}")
     g = torch.Generator().manual_seed(SEED + 6)
     results = {}
     for m, k, n, dtype in K6_SHAPES:
@@ -624,6 +637,13 @@ def phase_k6(tlm) -> dict:
         if not torch.isfinite(got).all() or not err <= limit:
             raise AssertionError(f"K6 at {shape} disagrees with its plain "
                                  f"version: {err} > {limit}")
+        if (m, k, n, dtype) == K6_FC1:
+            again = tlm.ln_matmul(x, scale, bias, w, b, 1e-5)
+            if not torch.equal(got, again):
+                raise AssertionError(f"K6 at {shape}: two calls on the same "
+                                     "inputs gave different bits")
+            log(f"K6 {shape}: a second call gave the same bits")
+            del again
         ms = median_ms(lambda: tlm.ln_matmul(x, scale, bias, w, b, 1e-5))
         plain_ms = median_ms(
             lambda: tlm.ln_matmul_plain(x, scale, bias, w, b, 1e-5), reps=5)
@@ -640,13 +660,16 @@ def phase_k6(tlm) -> dict:
             # 2*M*K*N operations of the product's type
             **bound((m * k + k * n + m * n) * itemsize + 4 * (2 * k + n),
                     2 * m * k * n, dtype),
-            "library_ms": library_ms, "port_pair_ms": pair_ms}
+            "library_ms": library_ms, "port_pair_ms": pair_ms,
+            "tflops": 2e-9 * m * k * n / ms}
         r = results[(m, k, n, dtype)]
         log(f"K6 {shape}{' (rows of zeros)' if ragged else ''}: max_abs_err "
-            f"{err:.3e} (bound {limit:.3e}), kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), F.layer_norm + F.linear {library_ms:.4f} ms, "
-            f"the package's layer_norm + linear {pair_ms:.4f} ms")
+            f"{err:.3e} (bound {limit:.3e}), kernel {ms:.4f} ms "
+            f"({r['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; kernel "
+            f"{ms / r['bound_ms']:.2f}x of it), F.layer_norm + F.linear "
+            f"{library_ms:.4f} ms, the package's layer_norm + linear "
+            f"{pair_ms:.4f} ms")
         del x, w, wt, got, want
     return results
 
@@ -1217,7 +1240,7 @@ def main() -> int:
     src = "ttl_tpu_torch/csrc/attention_bshd.cu"
     bhsd_src = "ttl_tpu_torch/csrc/attention_bhsd.cu"
     fc1 = k5[K5_FC1]
-    k6_fc1 = k6[(K6_ROWS, 768, 3072, torch.bfloat16)]
+    k6_fc1 = k6[K6_FC1]
 
     def other_shapes(kind):
         """K1's or K2's results at OTHER_FWD / OTHER_BWD, by shape."""

@@ -19,9 +19,15 @@ Inputs are made with numpy from a seed and go through both sides.
   tests/test_torch_clip.py; bf16 within a stated number of bf16 steps.
 - `fused_ln=True` with adapters or where a gradient would flow raises;
   with the whole tower int8 the fused call is reached 0 times.
+- K6's bf16 body emulated on the CPU (`emulate_k6`): its shared-memory
+  layouts against what wgmma's descriptors read, and its walk over the
+  tiles against `ln_matmul_plain` and JAX's reference.
 - `cuda`-marked cases hold the kernel against its plain version on the card
   (they skip where there is none).
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -262,6 +268,240 @@ def test_fused_ln_calls_per_layer_and_none_under_a_whole_int8_tower(
                                fused_ln=True)
     assert calls == []
     assert q.shape == fp.shape and torch.isfinite(q).all()
+
+
+# ------------------------------------------------- K6's bf16 body, emulated
+#
+# The kernel cannot run here, so what it computes is rebuilt from what it
+# writes and what wgmma reads: the x tile as TMA writes it (one box of BM
+# rows a 64-column chunk) and as wgmma's K-major A descriptor reads it, with
+# the 128-byte swizzle (`a_offset` in the source, where the layernorm reads
+# and writes), w's slices as TMA writes them into the ring and as the
+# MN-major B descriptor reads them, and the walk over row tiles, N tiles, K slices and
+# k16 steps. The tile constants are read from the source, so the emulation
+# follows it. Hardware side: the 128-byte swizzle XORs address bits [4, 7)
+# with bits [7, 10) (TMA on write, wgmma on read); a descriptor of layout
+# type 1 reads a K-major operand's 8-row atoms SBO bytes apart and an
+# MN-major operand's 8 K rows SBO apart, its next 64 columns LBO apart.
+
+K6_SOURCE = Path(tlm.__file__).resolve().parent.parent / "csrc" / \
+    "ln_matmul.cu"
+MAX_SMEM = 232448
+
+
+def _k6_tile():
+    text = K6_SOURCE.read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                text).group(1))
+            for name in ("kRowsTall", "kBN", "kWN", "kBK", "kStages")}
+
+
+def _round64(k):
+    return (k + 63) // 64 * 64
+
+
+def _k6_smem(bm, k, c):
+    """`wgmma_smem` of the source: alignment, tile, ring, barriers."""
+    return (1024 + bm * _round64(k) * 2 + c["kStages"] * c["kBK"] * c["kBN"]
+            * 2 + 16 * c["kStages"] + 8)
+
+
+def _k6_rows(k, c):
+    """The launcher's route rule: the tall tile where it and the ring fit."""
+    return c["kRowsTall"] if _k6_smem(c["kRowsTall"], k, c) <= MAX_SMEM \
+        else 64
+
+
+def _swizzle(addr):
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def _a_store(bm, r, col):
+    """Byte offset at which the kernel stores element (r, col) of the x
+    tile: `a_offset(bm, r, col / 8)` plus the element's place in its unit."""
+    u = col // 8
+    return (u // 8) * bm * 128 + r * 128 + ((u % 8) ^ (r % 8)) * 16 \
+        + (col % 8) * 2
+
+
+def _a_read(bm, wg, k0):
+    """Byte addresses at which wgmma reads warpgroup wg's A [64, 16] at K
+    offset k0: the descriptor's start as the kernel builds it, SBO = 1024."""
+    start = wg * 64 * 128 + (k0 // 64) * bm * 128 + (k0 % 64) * 2
+    i = np.arange(64)[:, None]
+    k = np.arange(16)[None, :]
+    return _swizzle(start + (i // 8) * 1024 + (i % 8) * 128 + (k // 8) * 16
+                    + (k % 8) * 2)
+
+
+def _b_store(c, kr, col):
+    """Byte offset in a stage at which TMA puts element (kr, col) of the
+    [kBK, kBN] slice: box col / 64, each box kBK rows of 128 bytes."""
+    return _swizzle((col // 64) * c["kBK"] * 128 + kr * 128 + (col % 64) * 2)
+
+
+def _b_read(c, q, s):
+    """Byte addresses in a stage at which wgmma q reads B [16, kWN] for the
+    slice's k16 step s: LBO = one box, SBO = 1024."""
+    box = c["kBK"] * 128
+    start = q * (c["kWN"] // 64) * box + s * 16 * 128
+    k = np.arange(16)[:, None]
+    n = np.arange(c["kWN"])[None, :]
+    return _swizzle(start + (n // 64) * box + (k // 8) * 1024
+                    + (k % 8) * 128 + (n % 64) * 2)
+
+
+def test_k6_tile_rule_and_budget():
+    """BM = 128 up to K = 768 and 64 beyond; the tile, the ring and the
+    barriers fit a block's shared memory at every zoo width and up to the
+    largest K the bf16 route takes; every operand atom starts on 1024
+    bytes."""
+    c = _k6_tile()
+    assert c["kBN"] % c["kWN"] == 0 and c["kWN"] % 64 == 0
+    assert c["kBK"] % 16 == 0 and c["kStages"] >= 3
+    for k in (48, 512, 640, 768):
+        assert _k6_rows(k, c) == c["kRowsTall"]
+    for k in (784, 1024, 1280, 1536):
+        assert _k6_rows(k, c) == 64
+        assert _k6_smem(64, k, c) <= MAX_SMEM
+    assert _k6_smem(64, 1552, c) > MAX_SMEM  # ttl_ln_matmul_max_k(1) = 1536
+    stage = c["kBK"] * c["kBN"] * 2
+    for bm in (64, c["kRowsTall"]):
+        assert (bm * 128) % 1024 == 0 and stage % 1024 == 0
+        assert (c["kBK"] * 128) % 1024 == 0 or c["kBK"] == 16
+
+
+@pytest.mark.parametrize("k", [48, 768, 1024])
+def test_k6_a_tile_stores_are_what_wgmma_reads(k):
+    """Every (row, column) of the x tile lands where TMA puts it and where
+    the A descriptor of the warpgroup and k16 step that multiply it reads
+    it, and the stores fill the tile without two elements on one address."""
+    c = _k6_tile()
+    bm, kp = _k6_rows(k, c), _round64(k)
+    r = np.arange(bm)[:, None]
+    col = np.arange(kp)[None, :]
+    store = _a_store(bm, r, col)
+    tma = _swizzle((col // 64) * bm * 128 + r * 128 + (col % 64) * 2)
+    np.testing.assert_array_equal(store, tma)
+    assert np.unique(store).size == bm * kp
+    assert store.min() == 0 and store.max() == bm * kp * 2 - 2
+    for wg in range(bm // 64):
+        for k0 in range(0, kp, 16):
+            np.testing.assert_array_equal(
+                _a_read(bm, wg, k0),
+                store[wg * 64:(wg + 1) * 64, k0:k0 + 16])
+
+
+def test_k6_w_slices_are_what_wgmma_reads():
+    """w [K, N] is read untransposed: TMA's element (k, n) of a slice is
+    what the MN-major descriptor of wgmma q reads for (k, n - q * kWN)."""
+    c = _k6_tile()
+    kr = np.arange(c["kBK"])[:, None]
+    col = np.arange(c["kBN"])[None, :]
+    store = _b_store(c, kr, col)
+    assert np.unique(store).size == c["kBK"] * c["kBN"]
+    for q in range(c["kBN"] // c["kWN"]):
+        for s in range(c["kBK"] // 16):
+            np.testing.assert_array_equal(
+                _b_read(c, q, s),
+                store[16 * s:16 * (s + 1), q * c["kWN"]:(q + 1) * c["kWN"]])
+
+
+def emulate_k6(x, ln_scale, ln_bias, w, b, eps=1e-5):
+    """K6's bf16 body step by step, in x's dtype (f32 or bf16 values): the
+    row tiles with rows past M zero, each row's statistics, the normalised
+    rows written through the kernel's store map (zero columns from K to the
+    next multiple of 64), each (N tile, K slice) written into its ring stage
+    as TMA does (zeros past K and N), each k16 step's operands gathered
+    through the A and B descriptors' read maps, f32 accumulators, the
+    epilogue's f32 bias and one rounding, and only rows below M and columns
+    below N stored. The order in which the kernel's blocks take the N tiles
+    changes no sum, so the walk takes them in turn."""
+    c = _k6_tile()
+    m, k = x.shape
+    n = w.shape[1]
+    bm, kp = _k6_rows(k, c), _round64(k)
+    tile_elems = bm * kp
+    stage_elems = c["kBK"] * c["kBN"]
+    rr = np.arange(bm)[:, None]
+    cc = np.arange(kp)[None, :]
+    a_idx = torch.from_numpy(_a_store(bm, rr, cc) // 2)
+    kr = np.arange(c["kBK"])[:, None]
+    bc = np.arange(c["kBN"])[None, :]
+    b_idx = torch.from_numpy(_b_store(c, kr, bc) // 2)
+    a_reads = {(wg, k0): torch.from_numpy(_a_read(bm, wg, k0) // 2)
+               for wg in range(bm // 64) for k0 in range(0, k, 16)}
+    b_reads = {(q, s): torch.from_numpy(_b_read(c, q, s) // 2)
+               for q in range(c["kBN"] // c["kWN"])
+               for s in range(c["kBK"] // 16)}
+    out = torch.zeros(m, n, dtype=x.dtype)
+    k_slices = -(-k // c["kBK"])
+    for m0 in range(0, m, bm):
+        tile = torch.zeros(tile_elems)
+        v = torch.zeros(bm, k)
+        v[:min(bm, m - m0)] = x[m0:m0 + bm].float()
+        mu = v.mean(dim=-1, keepdim=True)
+        var = (v - mu).square().mean(dim=-1, keepdim=True)
+        h = ((v - mu) * torch.rsqrt(var + eps) * ln_scale.float()
+             + ln_bias.float()).to(x.dtype).float()
+        normed = torch.zeros(bm, kp)
+        normed[:, :k] = h
+        tile[a_idx.flatten()] = normed.flatten()
+        acc = torch.zeros(bm, c["kBN"])
+        for nt in range(-(-n // c["kBN"])):
+            for ks in range(k_slices):
+                sl = torch.zeros(c["kBK"], c["kBN"])
+                part = w[ks * c["kBK"]:(ks + 1) * c["kBK"],
+                         nt * c["kBN"]:(nt + 1) * c["kBN"]].float()
+                sl[:part.shape[0], :part.shape[1]] = part
+                stage = torch.zeros(stage_elems)
+                stage[b_idx.flatten()] = sl.flatten()
+                for s in range(c["kBK"] // 16):
+                    k0 = ks * c["kBK"] + 16 * s
+                    if k0 >= k:
+                        continue
+                    for wg in range(bm // 64):
+                        av = tile[a_reads[wg, k0]]
+                        for q in range(c["kBN"] // c["kWN"]):
+                            bv = stage[b_reads[q, s]]
+                            cols = slice(q * c["kWN"], (q + 1) * c["kWN"])
+                            acc[wg * 64:(wg + 1) * 64, cols] += av @ bv
+            n0 = nt * c["kBN"]
+            n1 = min(n, n0 + c["kBN"])
+            m1 = min(m, m0 + bm)
+            out[m0:m1, n0:n1] = (acc[:m1 - m0, :n1 - n0]
+                                 + b[n0:n1].float()).to(x.dtype)
+            acc.zero_()
+    return out
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (77, 48, 80, torch.float32),       # K, N short of the tiles
+    (130, 1024, 320, torch.float32),   # ViT-L/14's width, 64-row tiles
+    (200, 768, 256, torch.float32),    # ragged M over 128-row tiles
+    (77, 48, 80, torch.bfloat16),
+])
+def test_emulated_k6_matches_plain(m, k, n, dtype):
+    """f32: the order of the sums only, rtol/atol 1e-5 as the plain
+    version's own tests against JAX. bf16: the normalised row rounds as in
+    the plain version, so only an output's own rounding may differ: one bf16
+    step of the output's scale. At f32 also against JAX's
+    `reference_ln_matmul`."""
+    arrays = _inputs(m, k, n, seed=m + k, zero_rows=(0, m // 2))
+    x, scale, bias, w, b = (torch.from_numpy(a) for a in arrays)
+    x, w = x.to(dtype), w.to(dtype)
+    got = emulate_k6(x, scale, bias, w, b)
+    want = tlm.ln_matmul_plain(x, scale, bias, w, b)
+    assert got.dtype == dtype and got.shape == (m, n)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(j_reference(*[jnp.asarray(a)
+                                                  for a in arrays])),
+            rtol=1e-5, atol=1e-5)
+    else:
+        bound = BF16_STEP * max(1.0, want.float().abs().max().item())
+        assert (got.float() - want.float()).abs().max().item() <= bound
 
 
 # ------------------------------------------------- K6 (needs the card)
