@@ -80,7 +80,24 @@ per source, side by side), then:
 20. card against CPU for one CoCoOp sample, `logits` and `adapted_logits`;
 21. `--cocoop --load FILE` with a CoCoOp checkpoint the script writes itself
    (a ctx and a meta-net from a seeded generator): one batch with it and one
-   without must give different logits.
+   without must give different logits;
+22. `--filter_plpd 1 --plpd_threshold 0` (PLPD, patch counterfactual;
+   PLPD_FLAGS) through `runner.run`:
+   the main path plus the whole vision tower once more, without gradient,
+   over every view's counterfactual (27 K1 and 3 K2 launches per batch, no
+   other kernel), timed as phase 4; then card against CPU for one sample
+   (`expect_adapted` within GRAD_BOUND_REL["PLPD"]), with the views the
+   filter kept on each side; then 16 images with `--prefix_quant int8`
+   too: the counterfactual's prefix through K5 as well (27 K1, 3 K2 and
+   108 K5 launches per batch);
+23. `--aug_list` over the 9 ops of `ops/augmix.py::DEFAULT_AUG_LIST`
+   through `runner.run` (15 K1 and 3 K2 launches per batch), timed as phase
+   4, the view
+   maker's device ms per batch with and without AugMix, and one sample's
+   AugMix views on the card against the CPU's in f32: the share of values
+   that differ by more than 1/255 (a threshold op stepped the other way)
+   within AUGMIX_STEP_SHARE, that by more than 1e-4 within
+   AUGMIX_DIFF_SHARE, and the largest difference below 1/255 printed.
 
 Every kernel's line also carries `bound_ms`, the least time the card could
 take for the call (the larger of its bytes over 3.35 TB/s and its operations
@@ -162,7 +179,24 @@ GRAD_BOUND_REL = {
     "prompt tuning": 2.0 ** -3,    # 3.85e-2 (einsum route)
     "TPT on LoRA": 2.0 ** -3,      # 4.60e-2 (einsum route)
     "CoCoOp": 2.0 ** -3,           # 6.07e-2 (einsum route)
+    "PLPD": 2.0 ** -6,             # 6.00e-3 (kernel route; 4 of 64
+                                   # views kept on one side only)
 }
+# PLPD's flags in phase 22. With random weights the top class of a view
+# holds a few percent of the mass over 200 classes, so the default
+# threshold of 0.2 would drop every view and the step would update nothing;
+# at 0 a view is kept where its counterfactual lowers its top class.
+PLPD_FLAGS = ("--filter_plpd", "1", "--plpd_threshold", "0")
+# AugMix views, card against CPU in f32 (values in [0, 1]): posterize,
+# solarize and equalize step at thresholds, so a value an f32 rounding away
+# from one lands a step away on one side, scaled by the mix's weights. The
+# shares of values that differ by more than 1/255 and by more than 1e-4 are
+# bounded at twice the largest that tools/torch_card_cpu_noise.py --views
+# measured over image seeds 1-8, rounded up to a power of two (H100 80GB
+# HBM3, 700 W; PERF.md). The largest difference below 1/255 is
+# printed (3.87e-3 at most over those seeds).
+AUGMIX_STEP_SHARE = 2.0 ** -18   # largest 1.25e-6
+AUGMIX_DIFF_SHARE = 2.0 ** -13   # largest 4.91e-5
 # With the int8 prefix, those bf16 differences also move activations across
 # .5 boundaries of the int8 grid: a share of the codes differs by one step
 # between card and CPU, noise of the same kind as the int8 rounding itself.
@@ -872,15 +906,38 @@ def phase_path(fa, tq, name: str, cfg, per_batch: dict,
         f"s, {100 * busy_s / np.median(pace):.1f}% of the steady s/batch; "
         f"top CUDA kernels:\n{profiled.table}")
     return {"launches": counts, "samples_per_s": rate,
-            "busy_share": busy_s / np.median(pace), "peak_gb": peak_gb}
+            "busy_share": busy_s / np.median(pace), "peak_gb": peak_gb,
+            "busy_ms": profiled.busy_ms}
 
 
 class Sample(NamedTuple):
     """One sample through a path: its logits ([C]; for CoCoOp [2, C],
-    `logits` above `adapted_logits`) and the gradient its adaptation step
-    handed AdamW at the first update, flat in f32 (None without AdamW)."""
+    `logits` above `adapted_logits`), the gradient its adaptation step
+    handed AdamW at the first update, flat in f32 (None without AdamW), and
+    the views the first DeYO loss kept (None off the DeYO paths)."""
     logits: torch.Tensor
     grad: Optional[torch.Tensor]
+    keep: Optional[torch.Tensor] = None
+
+
+@contextlib.contextmanager
+def first_keep_mask():
+    """Record the views the step's first `deyo_loss` keeps (`adapt.ttl`'s
+    module global): a list that holds the mask once the step has run."""
+    from ttl_tpu_torch.adapt import ttl
+    deyo, seen = ttl.deyo_loss, []
+
+    def recording(*args, **kw):
+        loss, aux = deyo(*args, **kw)
+        if not seen:
+            seen.append(aux["keep"].detach().cpu())
+        return loss, aux
+
+    ttl.deyo_loss = recording
+    try:
+        yield seen
+    finally:
+        ttl.deyo_loss = deyo
 
 
 @contextlib.contextmanager
@@ -917,17 +974,11 @@ def sample_step(cfg, image_seed: int = SEED + 1):
     from ttl_tpu_torch.data.classnames import resolve_classnames
     from ttl_tpu_torch.models.clip import tree_map
     from ttl_tpu_torch.models.prompts import prompt_tokens
-    from ttl_tpu_torch.ops.image import draw_batch
 
     dev = torch.device("cuda")
     clip_cfg, params = runner.load_model(cfg, dev)
-    rng = np.random.default_rng(image_seed)
-    canvas = np.zeros((1, 256, 256, 3), np.uint8)
-    canvas[0, :200, :256] = rng.integers(0, 256, (200, 256, 3),
-                                         dtype=np.uint8)
-    host = {"canvases": torch.from_numpy(canvas),
-            "hs": torch.tensor([200]), "ws": torch.tensor([256])}
-    draws = draw_batch(cfg.seed, [3], cfg.batch_size)
+    host = sample_canvas(image_seed)
+    draws = runner.sample_draws(cfg, [3])
 
     def moved(state, put):
         """A dataclass of tensors (and static fields) with its tensors put."""
@@ -980,11 +1031,23 @@ def sample_step(cfg, image_seed: int = SEED + 1):
                             put(host["ws"]))
 
     def run_on(device) -> Sample:
-        with first_update_gradient() as grads:
+        with first_update_gradient() as grads, first_keep_mask() as keep:
             logits = step(lambda t: t.to(device))[0].float().cpu()
-        return Sample(logits, grads[0] if grads else None)
+        return Sample(logits, grads[0] if grads else None,
+                      keep[0][0] if keep else None)
 
     return run_on
+
+
+def sample_canvas(image_seed: int) -> dict:
+    """The card-against-CPU sample: a 200 x 256 image of uniform noise from
+    `image_seed` on a 256-pixel canvas, as uint8 canvases, hs and ws."""
+    rng = np.random.default_rng(image_seed)
+    canvas = np.zeros((1, 256, 256, 3), np.uint8)
+    canvas[0, :200, :256] = rng.integers(0, 256, (200, 256, 3),
+                                         dtype=np.uint8)
+    return {"canvases": torch.from_numpy(canvas),
+            "hs": torch.tensor([200]), "ws": torch.tensor([256])}
 
 
 def card_and_cpu(cfg, **sample):
@@ -1026,6 +1089,11 @@ def expect_adapted(name: str, card: Sample, cpu: Sample, bound: float,
         cpu.logits.reshape(-1, cpu.logits.shape[-1])[row]
     err = relative_gradient_error(card, cpu)
     top2 = cpu_l.topk(2).values
+    if card.keep is not None:
+        log(f"card vs CPU, {name}: the first DeYO loss kept "
+            f"{int(card.keep.sum())} views on the card, "
+            f"{int(cpu.keep.sum())} on the CPU, "
+            f"{int((card.keep != cpu.keep).sum())} kept on one side only")
     log(f"card vs CPU, {name}: top-1 {int(card_l.argmax())} vs "
         f"{int(cpu_l.argmax())} (CPU margin to the second "
         f"{(top2[0] - top2[1]).item():.4f}), logits max_abs_diff "
@@ -1097,6 +1165,93 @@ def phase_int8_card_vs_cpu(name: str, flags: tuple, fp) -> None:
     if not EFFECT_SPREAD[0] <= ratio <= EFFECT_SPREAD[1]:
         raise AssertionError(f"{name}: the int8 effect on the card does not "
                              f"match the CPU's (spread ratio {ratio})")
+
+
+def augmix_view_diff(cfg, image_seed: int = SEED + 1) -> dict:
+    """One sample's views with AugMix (`cfg.aug_ops`) rendered in f32 on
+    the card and on the CPU from the same draws, compared in [0, 1] units
+    (the normalized difference times the CLIP std): the share of values
+    that differ by more than 1/255, the largest difference among the
+    others, and the share above 1e-4."""
+    from ttl_tpu_torch import runner
+    from ttl_tpu_torch.ops.image import CLIP_STD, render_views
+    host = sample_canvas(image_seed)
+    draws = runner.sample_draws(cfg, [3])
+
+    def views(device):
+        put = lambda t: t.to(device)   # noqa: E731
+        return render_views(*(put(host[k]) for k in ("canvases", "hs",
+                                                     "ws")),
+                            {k: put(t) for k, t in draws.items()},
+                            out_size=cfg.resolution, out_dtype=torch.float32,
+                            aug_ops=cfg.aug_ops).cpu()
+
+    std = torch.tensor(CLIP_STD)[:, None, None]
+    diff = ((views("cuda") - views("cpu")) * std).abs()
+    step = diff > 1.0 / 255.0
+    return {"step_share": step.float().mean().item(),
+            "elsewhere": diff[~step].max().item(),
+            "above_1e-4": (diff > 1e-4).float().mean().item()}
+
+
+def view_maker_ms(cfg) -> tuple:
+    """Device ms of `render_views` for one batch of `cfg.sample_batch`
+    samples on 500-pixel canvases, with `cfg.aug_ops` and without (median
+    of 5, CUDA events)."""
+    from ttl_tpu_torch import runner
+    from ttl_tpu_torch.adapt.ttl import compute_dtype
+    from ttl_tpu_torch.ops.image import render_views
+    n = cfg.sample_batch
+    g = torch.Generator().manual_seed(SEED + 5)
+    canvases = torch.randint(0, 256, (n, 500, 500, 3), generator=g,
+                             dtype=torch.uint8).cuda()
+    hs = torch.tensor([375, 480, 224, 500] * (n // 4 + 1))[:n].cuda()
+    ws = torch.tensor([500, 320, 224, 375] * (n // 4 + 1))[:n].cuda()
+    draws = {k: t.cuda() for k, t in runner.sample_draws(
+        cfg, range(n)).items()}
+
+    def render(aug_ops):
+        return render_views(canvases, hs, ws, draws, out_size=cfg.resolution,
+                            out_dtype=compute_dtype(cfg), aug_ops=aug_ops)
+
+    return (median_ms(lambda: render(cfg.aug_ops), reps=5),
+            median_ms(lambda: render(()), reps=5))
+
+
+def phase_plpd(fa, tq) -> tuple:
+    """PLPD (PLPD_FLAGS): the path timed (phase_path), one sample card
+    against CPU, and the launches with the int8 prefix. Returns both paths'
+    results."""
+    cfg = config(*PLPD_FLAGS)
+    path = phase_path(fa, tq, "PLPD", cfg, {"K1": 27, "K2": 3})
+    phase_card_vs_cpu(cfg, "PLPD", "PLPD")
+    int8 = phase_path(fa, tq, "PLPD, int8 prefix",
+                      config("--prefix_quant", "int8", *PLPD_FLAGS),
+                      {"K1": 27, "K2": 3, "K5": 108}, timed=False)
+    return path, int8
+
+
+def phase_augmix(fa, tq) -> dict:
+    """`--aug_list` over DEFAULT_AUG_LIST: the path timed (phase_path), the
+    view maker's time with and without AugMix, one sample's views card
+    against CPU."""
+    from ttl_tpu_torch.ops.augmix import DEFAULT_AUG_LIST
+    cfg = config("--aug_list", ",".join(DEFAULT_AUG_LIST))
+    path = phase_path(fa, tq, "AugMix", cfg, {"K1": 15, "K2": 3})
+    aug_ms, plain_ms = view_maker_ms(cfg)
+    log(f"AugMix view maker, one batch of {cfg.sample_batch} x "
+        f"{cfg.batch_size} views (render_views, device): {aug_ms:.4f} ms "
+        f"with AugMix, {plain_ms:.4f} ms without (the main path's)")
+    d = augmix_view_diff(cfg)
+    log(f"AugMix views, card vs CPU in f32: {100 * d['step_share']:.6f} % "
+        f"of values differ by more than 1/255 (bound "
+        f"{100 * AUGMIX_STEP_SHARE:.6f} %), {100 * d['above_1e-4']:.6f} % "
+        f"by more than 1e-4 (bound {100 * AUGMIX_DIFF_SHARE:.6f} %); "
+        f"largest difference elsewhere {d['elsewhere']:.3e}")
+    if not (d["step_share"] <= AUGMIX_STEP_SHARE
+            and d["above_1e-4"] <= AUGMIX_DIFF_SHARE):
+        raise AssertionError("AugMix views: card and CPU disagree")
+    return {**path, "view_ms": aug_ms, "plain_view_ms": plain_ms, **d}
 
 
 def write_cocoop_checkpoint(path, n_ctx: int, width: int, proj_dim: int):
@@ -1225,14 +1380,20 @@ def main() -> int:
                              {"K1": 12, "K6": 48})
     phase_cocoop_card_vs_cpu(cocoop_cfg)
     phase_cocoop_load(lib.parent)
+    plpd_path, plpd_int8 = phase_plpd(fa, tq)
+    augmix_path = phase_augmix(fa, tq)
     paths = {"main path": main_path, "int8 main path": int8_path,
              "zero-shot": zero_shot, "text-LoRA (per_head)": text_path,
-             "prompt tuning (heads)": prompt_path, "CoCoOp": cocoop_path}
-    log("steady samples/s, device busy share, peak device memory: "
+             "prompt tuning (heads)": prompt_path, "CoCoOp": cocoop_path,
+             "PLPD": plpd_path, "AugMix": augmix_path}
+    log("steady samples/s, device busy share, device ms per batch, peak "
+        "device memory: "
         + "; ".join(f"{name} {r['samples_per_s']:.3f}, "
-                    f"{100 * r['busy_share']:.1f}%, {r['peak_gb']:.3f} GB"
+                    f"{100 * r['busy_share']:.1f}%, {r['busy_ms']:.1f} ms, "
+                    f"{r['peak_gb']:.3f} GB"
                     for name, r in paths.items()))
     paths["TPT on LoRA"] = tpt_lora
+    paths["PLPD, int8 prefix"] = plpd_int8
 
     def by_path(key):
         return {name: r["launches"][key] for name, r in paths.items()}

@@ -12,7 +12,8 @@
   default mode, with `--prefix_quant int8`, and zero-shot with the int8
   tower and the ensemble classifier.
 - The port's runtime imports no JAX; its CLI refuses to run without CUDA and
-  raises on flags it does not cover yet.
+  raises on flags it does not cover yet (`--filter_plpd` and `--aug_list`
+  are covered now: tests/test_torch_plpd.py, tests/test_torch_augmix.py).
 """
 import json
 import subprocess
@@ -158,6 +159,7 @@ def test_runtime_imports_no_jax():
             "ttl_tpu_torch.cli, ttl_tpu_torch.ops.quant, "
             "ttl_tpu_torch.adapt.ttl, ttl_tpu_torch.models.prompts, "
             "ttl_tpu_torch.adapt.cocoop, ttl_tpu_torch.ops.ln_matmul, "
+            "ttl_tpu_torch.ops.augmix, "
             "ttl_tpu_torch.utils.checkpoint; "
             "assert 'jax' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith('jax'))")
@@ -174,8 +176,8 @@ def test_cli_refuses_to_run_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh_shape", "2"],
-    ["--filter_plpd", "1"], ["--checkpoint_path", "clip.pt"], ["-a", "RN50"],
-    ["--aug_list", "rotate"],
+    ["--test_sets", "bongard"], ["--checkpoint_path", "clip.pt"],
+    ["-a", "RN50"], ["-a", "RN101"],
 ])
 def test_uncovered_flags_raise(flags):
     args = tcli.build_parser().parse_args(["data", *flags])

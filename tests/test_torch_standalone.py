@@ -40,7 +40,8 @@ rng = np.random.default_rng(0)
 ds = ArrayDataset(rng.integers(0, 256, (2, 40, 56, 3), dtype=np.uint8),
                   np.array([3, 1]))
 for mode in ({}, {"lora_encoder": "text"}, {"lora_encoder": "prompt"},
-             {"cocoop": True}):
+             {"cocoop": True},
+             {"filter_plpd": 1, "aug_ops": ("rotate", "equalize")}):
     cfg = TTLConfig(arch="test-tiny", resolution=64, batch_size=8,
                     sample_batch=2, compute_dtype="float32",
                     param_dtype="float32", workers=1, **mode)

@@ -12,12 +12,18 @@ each seed it runs the sample on the CPU (plain versions), on the card
 through the path's kernel route, and on the card through the einsum route
 (no hand-written attention kernel), and prints for each pair the largest
 difference of the adapted logits and of the gradient over its largest
-element; then, per path, the largest and the median over the seeds.
+element (and, on the DeYO paths, how many views the first loss kept on one
+side only); then, per path, the largest and the median over the seeds.
+
+With `--views`, it measures instead the AugMix views
+(`chip_smoke.augmix_view_diff` over DEFAULT_AUG_LIST): per seed the share
+of values that differ by more than 1/255 between card and CPU, the largest
+difference among the others, and the largest of each over the seeds.
 
 Run from the root of the repository, on a machine with the card:
 
     python3 tools/torch_card_cpu_noise.py [--paths main prompt ...]
-        [--seeds 1 8]
+        [--seeds 1 8] [--views]
 """
 from __future__ import annotations
 
@@ -39,7 +45,27 @@ PATHS = {"main": ((), None, "main path"),
          "text": (("--lora_encoder", "text"), "per_head", "text-LoRA"),
          "prompt": (("--lora_encoder", "prompt"), "heads", "prompt tuning"),
          "tpt_lora": (("--deyo_selection", "False"), None, "TPT on LoRA"),
-         "cocoop": (("--cocoop",), None, "CoCoOp")}
+         "cocoop": (("--cocoop",), None, "CoCoOp"),
+         "plpd": (cs.PLPD_FLAGS, None, "PLPD")}
+
+
+def views(seeds) -> None:
+    """AugMix views, card against CPU, per image seed."""
+    from ttl_tpu_torch.ops.augmix import DEFAULT_AUG_LIST
+    cfg = cs.config("--aug_list", ",".join(DEFAULT_AUG_LIST))
+    worst = {}
+    for seed in range(seeds[0], seeds[1] + 1):
+        d = cs.augmix_view_diff(cfg, image_seed=seed)
+        cs.log(f"AugMix views, seed {seed}: {100 * d['step_share']:.5f} % of "
+               f"values differ by more than 1/255, "
+               f"{100 * d['above_1e-4']:.5f} % by more than 1e-4; largest "
+               f"difference elsewhere {d['elsewhere']:.4e}")
+        worst = {k: max(v, worst.get(k, 0.0)) for k, v in d.items()}
+    cs.log(f"AugMix views over seeds {seeds[0]}-{seeds[1]}: largest share "
+           f"above 1/255 {worst['step_share']:.4e} (bound in chip_smoke.py "
+           f"{cs.AUGMIX_STEP_SHARE:.4e}), above 1e-4 "
+           f"{worst['above_1e-4']:.4e} (bound {cs.AUGMIX_DIFF_SHARE:.4e}); "
+           f"largest difference elsewhere {worst['elsewhere']:.4e}")
 
 
 def main() -> int:
@@ -48,6 +74,8 @@ def main() -> int:
                     default=list(PATHS))
     ap.add_argument("--seeds", type=int, nargs=2, default=(1, 8),
                     metavar=("FIRST", "LAST"))
+    ap.add_argument("--views", action="store_true",
+                    help="measure the AugMix views instead of the paths")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -56,6 +84,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from ttl_tpu_torch.ops import attention as fa
     cs.log(f"{torch.cuda.get_device_name(0)}")
+    if args.views:
+        views(args.seeds)
+        return 0
     for path in args.paths:
         flags, route, bound_key = PATHS[path]
         cfg = cs.config(*flags)
@@ -80,6 +111,14 @@ def main() -> int:
                         f", gradient {grad:.4e}")
 
             top2 = logits("cpu").topk(2).values
+            if runs["cpu"].keep is not None:
+                cs.log(f"{path}, seed {seed}: views kept by the first DeYO "
+                       f"loss on one side only, kernel "
+                       + ", einsum ".join(
+                           str(int((runs[a].keep != runs["cpu"].keep).sum()))
+                           for a in ("kernel", "einsum"))
+                       + f" (of {runs['cpu'].keep.numel()}; CPU kept "
+                       f"{int(runs['cpu'].keep.sum())})")
             cs.log(f"{path}, seed {seed}: kernel vs CPU {diffs('kernel')}; "
                    f"einsum on the card vs CPU {diffs('einsum')}; top-1 "
                    f"{int(logits('kernel').argmax())} / "

@@ -22,6 +22,14 @@ LoRA modes (`make_batched_ttl_fn`):
    its adapters and optimizer state, weight decay included;
 3. the adapted part runs once more for each sample's clean view (view 0).
 
+With `--filter_plpd 1` (DeYO's PLPD filter) each update step also runs the
+whole vision tower, without gradient and with the current adapters, over a
+counterfactual of every view: its patches shuffled (`aug_type` patch, the
+default), its pixels shuffled (pixel) or a window mean-filled (occ). A view
+is kept only where the softmax of its own top class falls by more than
+`plpd_threshold` on its counterfactual. The permutations are host draws per
+(seed, dataset index, step), `draw_plpd_perms`.
+
 Prompt tuning (`make_tpt_adapt_fn`, `--lora_encoder prompt`): the image
 features of all views are frozen; the context vectors (and the learned
 class tokens, if any) are the trainable state, [S, n_ctx, d]; every step
@@ -44,21 +52,28 @@ from ..models.clip import (CLIPConfig, encode_image, l2_normalize,
                            text_features, text_features_from_embeddings,
                            vision_from_hidden, vision_prefix)
 from ..models.prompts import PromptLearnerState, needed_ctx_len
+from ..ops.augmix import check_aug_ops
 from ..ops.entropy import deyo_loss, select_confident, tpt_loss
-from ..ops.image import Draws, preprocess_center, render_views
+from ..ops.image import (Draws, preprocess_center, render_views,
+                         resize_bilinear, sample_generator)
 from ..ops.lora import lora_scale
 
 # torch.optim.AdamW defaults, as the reference and the JAX package use them
 ADAMW_BETAS = (0.9, 0.999)
 ADAMW_EPS = 1e-8
 ADAMW_WEIGHT_DECAY = 1e-2
+# the host generator stream of the PLPD permutations (ops.image's view
+# draws are stream 0 of the same (seed, index))
+PLPD_STREAM = 1
 
 
 class AdaptResult(NamedTuple):
     logits: torch.Tensor     # [S, C] adapted clean-view logits
     losses: torch.Tensor     # [S, steps] adaptation losses
     adapters: dict           # final per-sample adapters, [S, L, ...] leaves
-    zero_shot_logits: Optional[torch.Tensor] = None  # [S, C], prompt tuning
+    # [S, C] unadapted clean-view logits: prompt tuning always, the LoRA
+    # steps with zero_shot_aux; else None
+    zero_shot_logits: Optional[torch.Tensor] = None
 
 
 def compute_dtype(cfg: TTLConfig) -> torch.dtype:
@@ -68,9 +83,8 @@ def compute_dtype(cfg: TTLConfig) -> torch.dtype:
 def check_supported(cfg: TTLConfig) -> None:
     """Raise NotImplementedError for what this port does not cover yet,
     naming the ROADMAP (Queue 1) item that brings it."""
+    check_aug_ops(cfg.aug_ops)
     unsupported = [
-        (bool(cfg.filter_plpd), "--filter_plpd", 13),
-        (len(cfg.aug_ops) > 0, "--aug_list (AugMix)", 13),
         (cfg.checkpoint_path is not None, "--checkpoint_path", 14),
         (cfg.mesh_shape is not None, "--mesh_shape", 17),
     ]
@@ -79,6 +93,81 @@ def check_supported(cfg: TTLConfig) -> None:
             raise NotImplementedError(
                 f"{what} is not ported to ttl_tpu_torch yet "
                 f"(ROADMAP Queue 1, item {item})")
+
+
+# ------------------------------------------------------ PLPD counterfactuals
+
+def patch_shuffle(views: torch.Tensor, perm: torch.Tensor,
+                  patch_len: int) -> torch.Tensor:
+    """aug_type 'patch': square views [N, 3, H, H] resized to the largest
+    multiple of patch_len (bilinear, antialiased), cut into patch_len x patch_len
+    patches, patch i of view n taken from patch perm[n, i], and resized
+    back. perm: [N, patch_len**2]."""
+    n, c, h, w = views.shape
+    hp = (h // patch_len) * patch_len
+    p = hp // patch_len
+    x = resize_bilinear(views, hp)
+    x = x.reshape(n, c, patch_len, p, patch_len, p).permute(0, 2, 4, 1, 3, 5)
+    x = x.reshape(n, patch_len * patch_len, c, p, p)
+    x = x[torch.arange(n, device=x.device).unsqueeze(1), perm]
+    x = x.reshape(n, patch_len, patch_len, c, p, p).permute(0, 3, 1, 4, 2, 5)
+    return resize_bilinear(x.reshape(n, c, hp, hp), h)
+
+
+def pixel_shuffle(views: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """aug_type 'pixel': views [S, V, 3, H, W], the pixels of sample s's
+    views all moved by one permutation perm[s] of H*W."""
+    s, v, c, h, w = views.shape
+    index = perm.reshape(s, 1, 1, h * w).expand(s, v, c, h * w)
+    return torch.gather(views.reshape(s, v, c, h * w), 3, index).reshape(
+        views.shape)
+
+
+def occlude(views: torch.Tensor, cfg: TTLConfig) -> torch.Tensor:
+    """aug_type 'occ': a occlusion_size square at (row_start, column_start)
+    filled with each view's per-channel mean. views [N, 3, H, W]."""
+    mean = views.mean(dim=(2, 3), keepdim=True)
+    h, w = views.shape[-2:]
+    rows = torch.arange(h, device=views.device).unsqueeze(1)
+    cols = torch.arange(w, device=views.device).unsqueeze(0)
+    inside = ((rows >= cfg.row_start)
+              & (rows < cfg.row_start + cfg.occlusion_size)
+              & (cols >= cfg.column_start)
+              & (cols < cfg.column_start + cfg.occlusion_size))
+    return torch.where(inside, mean, views)
+
+
+def plpd_counterfactual(cfg: TTLConfig) -> bool:
+    """Whether the LoRA step runs PLPD's counterfactual forward: under
+    --filter_plpd, with the DeYO objective, as the JAX step does."""
+    return bool(cfg.filter_plpd) and cfg.deyo_selection \
+        and cfg.lora_encoder != "prompt" and not cfg.cocoop
+
+
+def draw_plpd_perms(cfg: TTLConfig, idx: int) -> Optional[torch.Tensor]:
+    """The counterfactual's permutations for dataset index `idx`, one
+    host generator per (seed, index, step): aug_type patch [steps, V,
+    patch_len**2] (a permutation per view), pixel [steps, H*W] (one per
+    step); None for occ, which draws nothing."""
+    if cfg.aug_type not in ("patch", "pixel"):
+        return None
+    out = []
+    for step in range(effective_update_steps(cfg)):
+        g = sample_generator(cfg.seed, idx, PLPD_STREAM, step)
+        if cfg.aug_type == "patch":
+            out.append(torch.rand(cfg.batch_size, cfg.patch_len ** 2,
+                                  generator=g).argsort(dim=-1))
+        else:
+            out.append(torch.randperm(cfg.resolution ** 2, generator=g))
+    return torch.stack(out)
+
+
+def _plpd(logits: torch.Tensor, logits_prime: torch.Tensor) -> torch.Tensor:
+    """p[argmax p] - p'[argmax p] per view, in f32."""
+    p = torch.softmax(logits.float(), dim=-1)
+    pp = torch.softmax(logits_prime.float(), dim=-1)
+    cls1 = p.argmax(dim=-1, keepdim=True)
+    return (p.gather(-1, cls1) - pp.gather(-1, cls1))[..., 0]
 
 
 def _adamw(params, grads, mu, nu, count, do, lr):
@@ -136,11 +225,18 @@ def truncate_tokens(tokens) -> np.ndarray:
 
 
 def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
-                        tokens=None):
-    """Return f(params, text_cls [C, P], adapters0, views [S, V, 3, H, W])
-    -> AdaptResult for S samples adapted independently. `tokens` [C, 77] is
-    the class-prompt table, needed (and `text_cls` ignored) with
-    `--lora_encoder text`."""
+                        tokens=None, zero_shot_aux: bool = False):
+    """Return f(params, text_cls [C, P], adapters0, views [S, V, 3, H, W],
+    plpd_perm=None) -> AdaptResult for S samples adapted independently.
+    `tokens` [C, 77] is the class-prompt table, needed (and `text_cls`
+    ignored) with `--lora_encoder text`. `plpd_perm` [S, steps, ...] holds
+    the PLPD permutations (`draw_plpd_perms`), needed under --filter_plpd
+    with aug_type patch or pixel.
+
+    With `zero_shot_aux` the result's `zero_shot_logits` are the clean
+    view's logits without adapters, from the cached frozen state of view 0:
+    one more single-view pass of the adapted part, without gradient. Without
+    it they are None and nothing more runs."""
     check_supported(cfg)
     if cfg.lora_encoder == "prompt":
         raise ValueError("--lora_encoder prompt adapts no LoRA: use "
@@ -152,17 +248,26 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
     steps = effective_update_steps(cfg)
     k_sel = _selection_k(cfg)
     vcfg = clip_cfg.vision
+    plpd_on = plpd_counterfactual(cfg)
     if not on_image:
         if tokens is None:
             raise ValueError("--lora_encoder text needs the class-prompt "
                              "token table")
         tokens = torch.from_numpy(truncate_tokens(tokens))
 
-    def logits_for(params, text_cls, leaves, frozen, n_samples):
+    def text_side(params, leaves):
+        """Text mode: the class features [S*C, P] of the current adapters
+        (of none where `leaves` is None: then [C, P])."""
+        return text_features(params["text"], tokens.to(
+            params["logit_scale"].device), clip_cfg.text,
+            adapters=None if leaves is None else _to_tree(leaves),
+            adapter_window=window, lora_scale=scale, compute_dtype=cd)
+
+    def logits_for(params, text_cls, leaves, frozen, n_samples, txt=None):
         """[S, V', C] logits of the current adapters. `frozen` is the
         per-view state the adapters do not reach: the prefix hidden state
         [S*V', S_pad, D] (image mode), or the normalized image features
-        [S*V', P] (text mode)."""
+        [S*V', P] (text mode, whose class features `txt` may be given)."""
         if on_image:
             vf = vision_from_hidden(params["vision"], frozen, vcfg,
                                     adapters=_to_tree(leaves),
@@ -170,22 +275,63 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
             logits = (torch.exp(params["logit_scale"]) * l2_normalize(vf)
                       ) @ text_cls.T
             return logits.reshape(n_samples, -1, logits.shape[-1])
-        txt = text_features(params["text"], tokens.to(frozen.device),
-                            clip_cfg.text, adapters=_to_tree(leaves),
-                            adapter_window=window, lora_scale=scale,
-                            compute_dtype=cd)
+        if txt is None:
+            txt = text_side(params, leaves)
         return _class_logits(params, frozen, txt, n_samples)
 
-    def step(params, text_cls, adapters0, views) -> AdaptResult:
-        s, v = views.shape[:2]
+    def frozen_state(params, views):
+        """The per-view state the adapters do not reach, views [S, V, ...]
+        flattened: the prefix hidden state (image mode) or the normalized
+        image features (text mode)."""
+        if on_image:
+            return vision_prefix(params["vision"], views.flatten(0, 1), vcfg,
+                                 upto=window[0], compute_dtype=cd)
+        return l2_normalize(encode_image(params["vision"], views.flatten(0, 1),
+                                         vcfg, compute_dtype=cd))
+
+    def counterfactual(views, perm):
+        """PLPD's counterfactual of every view, [S*V, 3, H, W]."""
+        if cfg.aug_type == "patch":
+            return patch_shuffle(views.flatten(0, 1), perm.flatten(0, 1),
+                                 cfg.patch_len)
+        if cfg.aug_type == "pixel":
+            return pixel_shuffle(views, perm).flatten(0, 1)
+        return occlude(views.flatten(0, 1), cfg)
+
+    def plpd_for(params, text_cls, leaves, views, perm, logits, txt):
+        """The PLPD of every view [S, V]: the whole vision tower over the
+        counterfactuals with the current adapters, without gradient."""
         with torch.no_grad():
+            x_prime = counterfactual(views, perm)
+            leaves = [t.detach() for t in leaves]
+            frozen = frozen_state(params, x_prime.unflatten(0, views.shape[:2]))
+            logits_prime = logits_for(
+                params, text_cls, leaves, frozen, views.shape[0],
+                None if txt is None else txt.detach())
+        return _plpd(logits.detach(), logits_prime)
+
+    def zero_shot(params, text_cls, frozen, s, v):
+        """The clean views' logits without adapters, [S, C]."""
+        with torch.no_grad():
+            clean = frozen.unflatten(0, (s, v))[:, 0]
             if on_image:
-                frozen = vision_prefix(params["vision"], views.flatten(0, 1),
-                                       vcfg, upto=window[0], compute_dtype=cd)
-            else:
-                frozen = l2_normalize(encode_image(
-                    params["vision"], views.flatten(0, 1), vcfg,
-                    compute_dtype=cd))
+                vf = vision_from_hidden(params["vision"], clean, vcfg,
+                                        adapter_window=window)
+                return (torch.exp(params["logit_scale"]) * l2_normalize(vf)
+                        ) @ text_cls.T
+            txt = l2_normalize(text_side(params, None))
+            return (torch.exp(params["logit_scale"]) * clean) @ txt.T
+
+    def step(params, text_cls, adapters0, views,
+             plpd_perm=None) -> AdaptResult:
+        s, v = views.shape[:2]
+        if plpd_on and plpd_perm is None and cfg.aug_type in ("patch",
+                                                              "pixel"):
+            raise ValueError("--filter_plpd with aug_type "
+                             f"{cfg.aug_type!r} needs the step's plpd_perm "
+                             "draws (draw_plpd_perms)")
+        with torch.no_grad():
+            frozen = frozen_state(params, views)
         leaves = [adapters0[m][ab].expand(s, *adapters0[m][ab].shape)
                   .clone() for m, ab in _LEAVES]
         every = torch.ones(s, dtype=torch.bool, device=views.device)
@@ -199,17 +345,24 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
         nu = [torch.zeros_like(t) for t in leaves]
         count = torch.zeros(s, dtype=torch.int32, device=views.device)
         losses = []
-        for _ in range(steps):
+        for i in range(steps):
             with torch.enable_grad():
                 leaves = [t.requires_grad_(True) for t in leaves]
-                logits = logits_for(params, text_cls, leaves, frozen, s)
+                txt = None if on_image else text_side(params, leaves)
+                logits = logits_for(params, text_cls, leaves, frozen, s, txt)
                 if cfg.deyo_selection:
+                    plpd = None if not plpd_on else plpd_for(
+                        params, text_cls, leaves, views,
+                        None if plpd_perm is None else plpd_perm[:, i],
+                        logits, txt)
                     loss, aux = deyo_loss(
                         logits, margin_e0=cfg.deyo_margin_e0,
                         deyo_margin=cfg.deyo_margin,
                         filter_ent=bool(cfg.filter_ent),
                         selection_p=cfg.selection_p,
-                        reweight_ent=float(cfg.reweight_ent),
+                        reweight_ent=float(cfg.reweight_ent), plpd=plpd,
+                        filter_plpd=plpd_on,
+                        plpd_threshold=cfg.plpd_threshold,
                         reweight_plpd=float(cfg.reweight_plpd))
                     do = aux["n_backward"] > 0
                 else:
@@ -223,25 +376,34 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
         with torch.no_grad():
             clean = frozen.unflatten(0, (s, v))[:, 0]
             out = logits_for(params, text_cls, leaves, clean, s)[:, 0]
-        return AdaptResult(logits=out, losses=torch.stack(losses, dim=1),
-                           adapters=_to_tree(leaves))
+        return AdaptResult(
+            logits=out, losses=torch.stack(losses, dim=1),
+            adapters=_to_tree(leaves),
+            zero_shot_logits=(zero_shot(params, text_cls, frozen, s, v)
+                              if zero_shot_aux else None))
 
     return step
 
 
-def make_fused_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *, tokens=None):
+def make_fused_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *, tokens=None,
+                      zero_shot_aux: bool = False):
     """View rendering + the batched step: f(params, text_cls, adapters0,
     canvases [S, C, C, 3] uint8, hs [S], ws [S], draws) -> AdaptResult.
-    `draws` are the host-made random draws (ops.image.draw_batch)."""
-    batched = make_batched_ttl_fn(clip_cfg, cfg, tokens=tokens)
+    `draws` are the host-made random draws (`runner.sample_draws`: the
+    views' of ops.image.draw_batch, and under --filter_plpd `plpd_perm`).
+    `zero_shot_aux` as in `make_batched_ttl_fn`."""
+    batched = make_batched_ttl_fn(clip_cfg, cfg, tokens=tokens,
+                                  zero_shot_aux=zero_shot_aux)
     cd = compute_dtype(cfg)
 
     def fused(params, text_cls, adapters0, canvases, hs, ws,
               draws: Draws) -> AdaptResult:
         with torch.no_grad():
             views = render_views(canvases, hs, ws, draws,
-                                 out_size=cfg.resolution, out_dtype=cd)
-        return batched(params, text_cls, adapters0, views)
+                                 out_size=cfg.resolution, out_dtype=cd,
+                                 aug_ops=cfg.aug_ops)
+        return batched(params, text_cls, adapters0, views,
+                       draws.get("plpd_perm"))
 
     return fused
 
@@ -332,7 +494,8 @@ def make_fused_tpt_fn(clip_cfg: CLIPConfig, cfg: TTLConfig):
     def fused(params, pl_state, canvases, hs, ws, draws: Draws):
         with torch.no_grad():
             views = render_views(canvases, hs, ws, draws,
-                                 out_size=cfg.resolution, out_dtype=cd)
+                                 out_size=cfg.resolution, out_dtype=cd,
+                                 aug_ops=cfg.aug_ops)
         return adapt(params, pl_state, views)
 
     return fused
@@ -350,7 +513,8 @@ def make_fused_cocoop_fn(clip_cfg: CLIPConfig, cfg: TTLConfig):
     def fused(params, co_state, canvases, hs, ws, draws: Draws):
         with torch.no_grad():
             views = render_views(canvases, hs, ws, draws,
-                                 out_size=cfg.resolution, out_dtype=cd)
+                                 out_size=cfg.resolution, out_dtype=cd,
+                                 aug_ops=cfg.aug_ops)
         return adapt(params, co_state, views)
 
     return fused

@@ -20,6 +20,16 @@ With `--prefix_quant int8` the vision parameters carry an int8 copy of the
 frozen prefix under `prefix_q` (`ops/quant.py`), and `vision_prefix` runs
 those layers through `encoder_layer_q`, whose six linears are K5.
 
+Two numerics switches are read as the JAX towers read them, at each call:
+`TTL_LN_STATS` (`centered`, the default, or `ex2`: E[x^2] - mu^2) for the
+layernorm variance, and `TTL_LORA_COMPUTE` (`mixed`, the default: A in the
+activation dtype, f32 accumulation; or `f32`: the activation upcast first)
+for the LoRA products. An unknown value raises ValueError.
+
+`fuse_qkv_params` rewrites a tower's q, k and v into one [L, D, 3D] `qkv`
+projection, which `encoder_layer` takes as one product (and, under
+`fused_ln`, one K6 launch).
+
 With `fused_ln=True` (the frozen vision tower of the CoCoOp step, under
 `torch.no_grad()`), a layer's two layernorms fold into the linears behind
 them: q, k, v and fc1 each come from one `ops.ln_matmul.ln_matmul` call, K6
@@ -36,7 +46,7 @@ import torch
 
 import torch.utils.checkpoint
 
-from ..ops.attention import attention, fused_mode
+from ..ops.attention import attention, env_choice, fused_mode
 from ..ops.ln_matmul import ln_matmul
 from ..ops.quant import linear_q
 
@@ -86,12 +96,27 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float())
 
 
+def ln_stats_mode() -> str:
+    """TTL_LN_STATS: 'centered' (default) or 'ex2'."""
+    return env_choice("TTL_LN_STATS", ("centered", "ex2"))
+
+
+def lora_compute_mode() -> str:
+    """TTL_LORA_COMPUTE: 'mixed' (default) or 'f32'."""
+    return env_choice("TTL_LORA_COMPUTE", ("mixed", "f32"))
+
+
 def layer_norm(x: torch.Tensor, p: Params, eps: float) -> torch.Tensor:
-    """Layernorm with f32 statistics and the centered variance, output in
-    x's dtype."""
+    """Layernorm with f32 statistics, output in x's dtype. The variance is
+    the centered mean((x - mu)^2), or with TTL_LN_STATS=ex2 E[x^2] - mu^2
+    floored at 0."""
     x32 = x.float()
     mu = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    if ln_stats_mode() == "ex2":
+        var = (x32.square().mean(dim=-1, keepdim=True)
+               - mu.square()).clamp(min=0.0)
+    else:
+        var = (x32 - mu).square().mean(dim=-1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * p["scale"] + p["bias"]).to(x.dtype)
 
@@ -117,14 +142,36 @@ def layer_at(stacked: Params, i: int) -> Params:
 
 
 def _lora_delta(h: torch.Tensor, ad: Params, scale: float) -> torch.Tensor:
-    """scale * (h @ A) @ B with bf16 inputs, f32 accumulation and an f32
-    rank-r intermediate (the JAX "mixed" LoRA mode). A is [D, r] for one
+    """scale * (h @ A) @ B in f32. In the default "mixed" mode A is rounded
+    to h's dtype and the products accumulate in f32 with an f32 rank-r
+    intermediate; with TTL_LORA_COMPUTE=f32, A stays f32 and the scale
+    applies before B, as the JAX expression is written. A is [D, r] for one
     adapter set, or [S, D, r] for per-sample adapters over h's leading axis
     split into S equal groups."""
     a, b = ad["A"], ad["B"]
     hh = h if a.dim() == 2 else h.reshape(a.shape[0], -1, h.shape[-1])
-    t = mm_f32(hh, a.to(h.dtype))
-    return (scale * torch.matmul(t, b)).reshape(h.shape)
+    if lora_compute_mode() == "f32":
+        out = torch.matmul(scale * mm_f32(hh, a), b)
+    else:
+        out = scale * torch.matmul(mm_f32(hh, a.to(h.dtype)), b)
+    return out.reshape(h.shape)
+
+
+def fuse_qkv_params(tower: Params) -> Params:
+    """A tower whose stacked layers carry one fused `qkv` projection
+    ([L, D, 3D] weight, [L, 3D] bias: q, k, v side by side) in place of q,
+    k and v: a layout transform that `encoder_layer` detects. Not applied
+    by default; the int8 prefix (`ops/quant.py`) refuses it."""
+    attn = tower["layers"]["attn"]
+    fused = {"qkv": {key: torch.cat([attn[name][key] for name in "qkv"],
+                                    dim=-1) for key in ("w", "b")},
+             "o": attn["o"]}
+    return {**tower, "layers": {**tower["layers"], "attn": fused}}
+
+
+def _split_qkv(qkv: torch.Tensor):
+    """A fused projection's output [..., 3D] -> contiguous q, k, v."""
+    return [t.contiguous() for t in qkv.chunk(3, dim=-1)]
 
 
 def _ln_linear(x: torch.Tensor, ln: Params, lin: Params,
@@ -142,8 +189,11 @@ def _encoder_layer_fused_ln(p: Params, x: torch.Tensor, *, heads: int,
         raise ValueError("fused_ln is forward only: run the layer under "
                          "torch.no_grad() or on an input that needs no "
                          "gradient")
-    q, k, v = (_ln_linear(x, p["ln1"], p["attn"][name], eps)
-               for name in "qkv")
+    if "qkv" in p["attn"]:
+        q, k, v = _split_qkv(_ln_linear(x, p["ln1"], p["attn"]["qkv"], eps))
+    else:
+        q, k, v = (_ln_linear(x, p["ln1"], p["attn"][name], eps)
+                   for name in "qkv")
     x = x + linear(attention(q, k, v, heads, causal, seq_len), p["attn"]["o"])
     fc1 = _ln_linear(x, p["ln2"], p["mlp"]["fc1"], eps)
     return x + linear(quick_gelu(fc1), p["mlp"]["fc2"])
@@ -154,8 +204,10 @@ def encoder_layer(p: Params, x: torch.Tensor, *, heads: int, eps: float,
                   lora_scale: float = 2.0, seq_len: Optional[int] = None,
                   fused_ln: bool = False) -> torch.Tensor:
     """Pre-LN transformer block with a QuickGELU MLP. `lora` adds rank-r
-    updates to the q and v projections. `fused_ln` takes q, k, v and fc1
-    from `ln_matmul` (frozen layers only: no LoRA, no gradient)."""
+    updates to the q and v projections. A layer with a fused `qkv`
+    projection (`fuse_qkv_params`) takes q, k and v from one product.
+    `fused_ln` takes q, k, v and fc1 from `ln_matmul` (frozen layers only:
+    no LoRA, no gradient)."""
     if fused_ln:
         if lora is not None:
             raise ValueError("fused_ln does not take LoRA adapters: the "
@@ -163,9 +215,12 @@ def encoder_layer(p: Params, x: torch.Tensor, *, heads: int, eps: float,
         return _encoder_layer_fused_ln(p, x, heads=heads, eps=eps,
                                        causal=causal, seq_len=seq_len)
     h = layer_norm(x, p["ln1"], eps)
-    q = linear(h, p["attn"]["q"])
-    k = linear(h, p["attn"]["k"])
-    v = linear(h, p["attn"]["v"])
+    if "qkv" in p["attn"]:
+        q, k, v = _split_qkv(linear(h, p["attn"]["qkv"]))
+    else:
+        q = linear(h, p["attn"]["q"])
+        k = linear(h, p["attn"]["k"])
+        v = linear(h, p["attn"]["v"])
     if lora is not None:
         q = q + _lora_delta(h, lora["q"], lora_scale).to(q.dtype)
         v = v + _lora_delta(h, lora["v"], lora_scale).to(v.dtype)

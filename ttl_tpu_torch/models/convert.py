@@ -2,7 +2,8 @@
 
 The JAX package keeps parameters as nested dicts of arrays in the layout the
 port uses too ([in, out] linears, layers stacked on axis 0), so the bridge is
-one tensor per leaf. `np.asarray` of a JAX bfloat16 array is an ml_dtypes
+one tensor per leaf; a tower whose q, k and v are fused into one `qkv`
+projection (`fuse_qkv_params` of either package) bridges the same way. `np.asarray` of a JAX bfloat16 array is an ml_dtypes
 array that `torch.from_numpy` refuses; such leaves go through float32 and
 back to bfloat16, which is exact.
 """

@@ -164,14 +164,15 @@ def init_prompt_learner(token_embed: torch.Tensor, classnames: Sequence[str],
                         ctx_init: str = "a_photo_of_a",
                         ctx_position: str = "end",
                         learned_cls: bool = False,
-                        generator: Optional[torch.Generator] = None
-                        ) -> PromptLearnerState:
+                        generator: Optional[torch.Generator] = None,
+                        truncate: bool = True) -> PromptLearnerState:
     """Build the prompt-learner buffers from the frozen token embedding
     table (on its device). The ctx vectors are the embeddings of the init
     phrase, in f32. With `learned_cls` each class gets a random one-token
     vector (0.02 * normal, drawn on the host from `generator`) in place of
-    its name. The dead positions past the longest EOT are dropped
-    (needed_ctx_len; exact)."""
+    its name. With `truncate` (the default) the dead positions past the
+    longest EOT are dropped (needed_ctx_len; exact); `truncate=False` keeps
+    the full 77-token context."""
     tk = default_tokenizer()
     phrase = ctx_init.replace("_", " ")
     n_ctx = len(phrase.split(" "))
@@ -186,7 +187,7 @@ def init_prompt_learner(token_embed: torch.Tensor, classnames: Sequence[str],
         toks = np.asarray(tokenize([f"{phrase} X." for _ in classnames]))
     else:
         toks = prompt_tokens(classnames, phrase)
-    ctx_len = needed_ctx_len(toks)
+    ctx_len = needed_ctx_len(toks) if truncate else toks.shape[-1]
     toks = torch.from_numpy(toks[:, :ctx_len].astype(np.int64)).to(device)
     embedding = token_embed[toks]                       # [C, ctx_len, d]
     if learned_cls:

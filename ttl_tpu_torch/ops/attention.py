@@ -14,6 +14,13 @@ route, as in the JAX package (`fused_mode`):
                        the einsum numerics everywhere
   anything else        ValueError
 
+`TTL_ATTN_SCORES` sets how the einsum numerics store the scores of
+low-precision inputs, as `ttl_tpu/ops/attention.py::_scores_dtype_low`
+reads it: unset or `low`, in the input dtype from a pre-scaled q; `f32`, in
+f32 from the unscaled q, divided after; anything else raises ValueError.
+The kernels keep f32 scores whatever it says, as the JAX package's bshd
+kernel does.
+
 bshd: q/k/v come in the towers' own [B, S, H*D] layout and the output goes
 back in it. S may be the tower's padded token count, with `seq_len` the true
 one: keys at positions >= seq_len are masked, query rows there come out as
@@ -79,6 +86,22 @@ def fused_mode() -> str:
     return _env_mode
 
 
+def env_choice(name: str, choices: tuple) -> str:
+    """The value of the numerics switch `name`: unset or empty gives
+    choices[0], the default; a value outside `choices` raises. Read at each
+    call, as the JAX package reads its switches at each trace."""
+    value = os.environ.get(name) or choices[0]
+    if value not in choices:
+        raise ValueError(f"{name}={value!r}: expected one of {choices} or "
+                         "unset")
+    return value
+
+
+def scores_mode() -> str:
+    """TTL_ATTN_SCORES: 'low' (default) or 'f32'."""
+    return env_choice("TTL_ATTN_SCORES", ("low", "f32"))
+
+
 def reset_mode() -> None:
     """Forget the cached TTL_FUSED_ATTENTION decision."""
     global _env_mode
@@ -139,17 +162,20 @@ def einsum_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            heads: int, causal: bool) -> torch.Tensor:
     """[B, S, H*D] attention in the numerics of the JAX einsum route
     (`reference_attention`): for low-precision inputs q is pre-scaled and
-    the scores are stored in the input dtype; f32 inputs get f32 scores
-    divided after. Softmax in f32, P.V accumulated in f32."""
+    the scores are stored in the input dtype, unless TTL_ATTN_SCORES=f32;
+    f32 inputs, and low-precision ones under that setting, get f32 scores
+    from the unscaled q, divided after. Softmax in f32, P.V accumulated in
+    f32."""
     d = q.shape[-1] // heads
     s = q.shape[1]
     qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
-    if q.dtype != torch.float32:
+    if q.dtype != torch.float32 and scores_mode() == "low":
         qh = (qh.float() * (1.0 / math.sqrt(d))).to(q.dtype)
         scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)).to(
             q.dtype)
     else:
-        scores = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(d)
+        scores = torch.matmul(qh.float(), kh.float().transpose(-1, -2)
+                              ) / math.sqrt(d)
     if causal:
         keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
         scores = torch.where(keep, scores,

@@ -1,8 +1,9 @@
 """Entropy objectives over logits, in float32.
 
-Counterpart of `softmax_entropy`, `avg_entropy`, `select_confident`,
-`tpt_loss` and `deyo_loss` in `ttl_tpu/ops/entropy.py`, over any leading
-batch axes: logits [..., N, C] give per-batch losses [...].
+Counterpart of `softmax_entropy`, `avg_entropy`, `data_uncertainty`,
+`select_confident`, `quartile_selection`, `tpt_loss` and `deyo_loss` in
+`ttl_tpu/ops/entropy.py`, over any leading batch axes: logits [..., N, C]
+give per-batch losses [...].
 """
 from __future__ import annotations
 
@@ -88,6 +89,12 @@ def avg_entropy(logits: torch.Tensor,
     return -(avg_logp * avg_logp.exp()).sum(dim=-1)
 
 
+def data_uncertainty(logits: torch.Tensor) -> torch.Tensor:
+    """Mean per-view entropy E_i[H(p_i)] over the N rows of each batch
+    entry: logits [..., N, C] -> [...]."""
+    return softmax_entropy(logits).mean(dim=-1)
+
+
 def select_confident(logits: torch.Tensor, k: int):
     """The k lowest-entropy rows of each batch entry: logits [..., N, C] ->
     (selected logits [..., k, C], idx [..., k], mask [..., N] bool). Equal
@@ -99,6 +106,19 @@ def select_confident(logits: torch.Tensor, k: int):
     picked = torch.gather(
         logits, -2, idx.unsqueeze(-1).expand(*idx.shape, logits.shape[-1]))
     return picked, idx, mask
+
+
+def quartile_selection(logits: torch.Tensor, quartile: int = 0,
+                       num_chunks: int = 8) -> torch.Tensor:
+    """Indices of the `quartile`-th of `num_chunks` entropy chunks of each
+    batch entry, lowest entropies first: logits [..., N, C] -> [..., N //
+    num_chunks]. Equal entropies keep their index order, as the stable
+    `jnp.argsort` does; a start past the last chunk is clamped to it, as
+    `jax.lax.dynamic_slice_in_dim` clamps."""
+    order = torch.argsort(softmax_entropy(logits), dim=-1, stable=True)
+    chunk = logits.shape[-2] // num_chunks
+    start = min(max(quartile * chunk, 0), (num_chunks - 1) * chunk)
+    return order[..., start:start + chunk]
 
 
 def tpt_loss(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,9 @@ in `ttl_tpu/runner.py`, for the LoRA modes (`--lora_encoder image|text`,
 with the DeYO objective or, `deyo_selection=False`, the TPT one), prompt
 tuning (`--lora_encoder prompt`), CoCoOp (`--cocoop`) and zero-shot
 (`--tta_steps 0`), with the single-template or the ensemble (`--ensemble`)
-classifier, an optional int8 frozen prefix (`--prefix_quant int8`) and an
-optional CoOp/CoCoOp prompt checkpoint (`--load`). Per dataset it builds
+classifier, an optional int8 frozen prefix (`--prefix_quant int8`), PLPD's
+filter (`--filter_plpd 1`), AugMix views (`--aug_list`) and an optional
+CoOp/CoCoOp prompt checkpoint (`--load`). Per dataset it builds
 the text side once (the frozen classifier, the class-prompt token table,
 the prompt learner or the CoCoOp state), streams samples through
 `SampleLoader`, and runs one fused step per batch of `sample_batch` samples:
@@ -37,20 +38,21 @@ import numpy as np
 import torch
 
 from .adapt.cocoop import init_cocoop
-from .adapt.ttl import (check_supported, compute_dtype, make_fused_cocoop_fn,
-                        make_fused_tpt_fn, make_fused_ttl_fn,
-                        make_fused_zeroshot_fn)
+from .adapt.ttl import (check_supported, compute_dtype, draw_plpd_perms,
+                        make_fused_cocoop_fn, make_fused_tpt_fn,
+                        make_fused_ttl_fn, make_fused_zeroshot_fn,
+                        plpd_counterfactual)
 from .config import TTLConfig, resolve_layer_range
 from .data.classnames import resolve_classnames
 from .data.registry import build_dataset, dataset_exists, expected_subdir
 from .data.views import DEFAULT_CANVAS, SampleLoader
-from .models.clip import (init_clip_params, l2_normalize,
-                          text_features_from_embeddings)
+from .models.clip import (init_clip_params, l2_normalize, lora_compute_mode,
+                          ln_stats_mode, text_features_from_embeddings)
 from .models.prompts import (build_ensemble_classifier, build_text_classifier,
                              init_prompt_learner, prompt_tokens)
 from .models.zoo import get_arch
 from .ops.image import draw_batch
-from .ops.attention import fused_mode
+from .ops.attention import fused_mode, scores_mode
 from .ops.lora import adapter_param_count, init_adapters
 from .ops.quant import attach_prefix_quant, quant_prefix_len
 from .parallel.eval import topk_counts
@@ -105,6 +107,22 @@ class DeviceBatch(NamedTuple):
                 *self.draws.values()]
 
 
+def sample_draws(cfg: TTLConfig, indices) -> dict:
+    """The host draws of the samples at dataset `indices`, stacked: the
+    random views' (with AugMix's when `--aug_list` is set) and, where the
+    step runs PLPD's counterfactual, `plpd_perm`. Zero-shot draws nothing;
+    CoCoOp renders its views whatever `tta_steps` is."""
+    if not (cfg.tta_steps > 0 or cfg.cocoop):
+        return {}
+    aug = (len(cfg.aug_ops), cfg.aug_severity) if cfg.aug_ops else ()
+    draws = draw_batch(cfg.seed, indices, cfg.batch_size, *aug)
+    if plpd_counterfactual(cfg):
+        perms = [draw_plpd_perms(cfg, int(i)) for i in indices]
+        if perms[0] is not None:
+            draws["plpd_perm"] = torch.stack(perms)
+    return draws
+
+
 def _switched_on(name: str) -> bool:
     """An A/B switch of the reference's runner: on unless set to '0'."""
     return os.environ.get(name, "1") != "0"
@@ -115,17 +133,14 @@ def _make_upload(cfg: TTLConfig, device, batch_size: int,
     """SampleBatch -> DeviceBatch. With `overlap` it is the loader's
     transform, run in the prefetch thread, and copies on a side stream;
     without, the caller runs it just before the dispatch and it copies on
-    the current stream. Zero-shot draws no random views; CoCoOp renders its
-    views whatever `tta_steps` is."""
+    the current stream."""
     on_card = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if on_card and overlap else None
 
     def upload(b) -> DeviceBatch:
         host = DeviceBatch(
             torch.from_numpy(b.canvases), torch.from_numpy(b.heights),
-            torch.from_numpy(b.widths),
-            (draw_batch(cfg.seed, b.indices, cfg.batch_size)
-             if cfg.tta_steps > 0 or cfg.cocoop else {}),
+            torch.from_numpy(b.widths), sample_draws(cfg, b.indices),
             torch.from_numpy(b.labels.astype(np.int64)),
             torch.from_numpy(np.arange(batch_size) < batch_size - b.pad),
             None)
@@ -341,7 +356,11 @@ def run(cfg: TTLConfig, *, device, datasets: Optional[Dict] = None,
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    fused_mode()   # an unknown TTL_FUSED_ATTENTION raises before any work
+    # an unknown TTL_FUSED_ATTENTION, TTL_LN_STATS, TTL_LORA_COMPUTE or
+    # TTL_ATTN_SCORES raises before any work
+    for read_switch in (fused_mode, ln_stats_mode, lora_compute_mode,
+                        scores_mode):
+        read_switch()
     clip_cfg, params = load_model(cfg, device)
     adapters0 = (None if cfg.lora_encoder == "prompt"
                  else make_adapters0(cfg, clip_cfg, device))
