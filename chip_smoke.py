@@ -97,7 +97,24 @@ per source, side by side), then:
    AugMix views on the card against the CPU's in f32: the share of values
    that differ by more than 1/255 (a threshold op stepped the other way)
    within AUGMIX_STEP_SHARE, that by more than 1e-4 within
-   AUGMIX_DIFF_SHARE, and the largest difference below 1/255 printed.
+   AUGMIX_DIFF_SHARE, and the largest difference below 1/255 printed;
+24. `-a RN50 --lora_encoder prompt` (TPT on the ResNet tower, RN50's
+   published widths) under TTL_FUSED_ATTENTION=heads through `runner.run`:
+   the vision tower on cuDNN convolutions, the text tower through K4 (48
+   forward and 12 backward launches per batch, no other kernel), timed as
+   phase 4; then card against CPU for one sample (`expect_adapted` within
+   GRAD_BOUND_REL["RN50 prompt tuning"]);
+25. `-a RN50 --tta_steps 0` (zero-shot) on the default route: no kernel
+   launch, timed as phase 4; then card against CPU for one sample within
+   CARD_CPU_BOUND;
+26. `--checkpoint_path`: the script writes two seeded synthetic checkpoints
+   at full width in fp16 into a temporary directory under the build
+   directory, an OpenAI-layout RN50 `.pt` and an HF-layout ViT-B/16 `.pt`,
+   and runs one batch of each through `runner.run` (RN50 TPT under heads:
+   K4 48/12; ViT-B/16's main path: K1 15, K2 3); three loaded leaves must
+   equal the file's tensors after the layout change; the loaded params are
+   saved with `models.convert.save_pytree`, and one batch from that `.npz`
+   must give the same bits as from the file.
 
 Every kernel's line also carries `bound_ms`, the least time the card could
 take for the call (the larger of its bytes over 3.35 TB/s and its operations
@@ -181,6 +198,10 @@ GRAD_BOUND_REL = {
     "CoCoOp": 2.0 ** -3,           # 6.07e-2 (einsum route)
     "PLPD": 2.0 ** -6,             # 6.00e-3 (kernel route; 4 of 64
                                    # views kept on one side only)
+    "RN50 prompt tuning": 2.0 ** -2,   # 9.13e-2 (einsum route; kernel
+                                       # route 7.51e-2): the bf16 ResNet
+                                       # tower's features on cuDNN against
+                                       # the CPU's convolutions
 }
 # PLPD's flags in phase 22. With random weights the top class of a view
 # holds a few percent of the mass over 200 classes, so the default
@@ -1300,6 +1321,225 @@ def phase_cocoop_load(build_dir) -> float:
     return diff
 
 
+RN50_PROMPT_FLAGS = ("-a", "RN50", "--lora_encoder", "prompt")
+
+
+def phase_resnet(fa, tq) -> tuple:
+    """RN50 prompt tuning under heads and RN50 zero-shot on the default
+    route: each path timed (phase_path) and one sample card against CPU.
+    Returns both paths' results."""
+    tpt_cfg = config(*RN50_PROMPT_FLAGS)
+    with attention_route(fa, "heads"):
+        tpt = phase_path(fa, tq, "RN50 prompt tuning, heads route", tpt_cfg,
+                         {"K4 fwd": 48, "K4 bwd": 12})
+        phase_card_vs_cpu(tpt_cfg, "RN50 prompt tuning, heads route",
+                          "RN50 prompt tuning")
+    zs_cfg = config("-a", "RN50", "--tta_steps", "0")
+    zero_shot = phase_path(fa, tq, "RN50 zero-shot", zs_cfg, {})
+    phase_card_vs_cpu(zs_cfg, "RN50 zero-shot")
+    return tpt, zero_shot
+
+
+def seeded_weights(arch: str, seed: int) -> dict:
+    """Random f32 weights of `arch` on the host in the port's layout, drawn
+    from `seed`; a ResNet's batchnorms get drawn running statistics."""
+    from ttl_tpu_torch.models.clip import init_clip_params
+    from ttl_tpu_torch.models.zoo import get_arch
+    g = torch.Generator().manual_seed(seed)
+    params = init_clip_params(get_arch(arch), g, device="cpu")
+
+    def statistics_of(tree):
+        if isinstance(tree, dict) and "var" in tree:
+            n = tree["var"].shape
+            return {"scale": 1 + 0.1 * torch.randn(n, generator=g),
+                    "bias": 0.1 * torch.randn(n, generator=g),
+                    "mean": 0.1 * torch.randn(n, generator=g),
+                    "var": 0.5 + torch.rand(n, generator=g)}
+        if isinstance(tree, dict):
+            return {k: statistics_of(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [statistics_of(v) for v in tree]
+        return tree
+
+    return {**params, "vision": statistics_of(params["vision"])}
+
+
+def openai_rn_state_dict(p: dict) -> dict:
+    """The port's RN-family parameters as OpenAI's clip names them (the
+    inverse of models.convert.from_openai_state_dict), fp16 as published."""
+    sd = {"logit_scale": p["logit_scale"]}
+    v, t = p["vision"], p["text"]
+
+    def bn(prefix, b):
+        sd.update({f"{prefix}.weight": b["scale"], f"{prefix}.bias": b["bias"],
+                   f"{prefix}.running_mean": b["mean"],
+                   f"{prefix}.running_var": b["var"]})
+
+    for i in (1, 2, 3):
+        sd[f"visual.conv{i}.weight"] = v[f"conv{i}"]
+        bn(f"visual.bn{i}", v[f"bn{i}"])
+    for stage in range(1, 5):
+        for b, bp in enumerate(v[f"layer{stage}"]):
+            pre = f"visual.layer{stage}.{b}"
+            for i in (1, 2, 3):
+                sd[f"{pre}.conv{i}.weight"] = bp[f"conv{i}"]
+                bn(f"{pre}.bn{i}", bp[f"bn{i}"])
+            if "downsample" in bp:
+                sd[f"{pre}.downsample.0.weight"] = bp["downsample"]["conv"]
+                bn(f"{pre}.downsample.1", bp["downsample"]["bn"])
+    ap = v["attnpool"]
+    sd["visual.attnpool.positional_embedding"] = ap["pos_embed"]
+    for name, key in (("q", "q"), ("k", "k"), ("v", "v"), ("c", "out")):
+        sd[f"visual.attnpool.{name}_proj.weight"] = ap[key]["w"].T
+        sd[f"visual.attnpool.{name}_proj.bias"] = ap[key]["b"]
+    sd.update({"token_embedding.weight": t["token_embed"],
+               "positional_embedding": t["pos_embed"],
+               "ln_final.weight": t["ln_final"]["scale"],
+               "ln_final.bias": t["ln_final"]["bias"],
+               "text_projection": t["proj"]})
+    lay = t["layers"]
+    for i in range(lay["ln1"]["scale"].shape[0]):
+        pre = f"transformer.resblocks.{i}"
+        attn, mlp = lay["attn"], lay["mlp"]
+        sd.update({
+            f"{pre}.attn.in_proj_weight":
+                torch.cat([attn[n]["w"][i].T for n in "qkv"]),
+            f"{pre}.attn.in_proj_bias":
+                torch.cat([attn[n]["b"][i] for n in "qkv"]),
+            f"{pre}.attn.out_proj.weight": attn["o"]["w"][i].T,
+            f"{pre}.attn.out_proj.bias": attn["o"]["b"][i],
+            f"{pre}.ln_1.weight": lay["ln1"]["scale"][i],
+            f"{pre}.ln_1.bias": lay["ln1"]["bias"][i],
+            f"{pre}.ln_2.weight": lay["ln2"]["scale"][i],
+            f"{pre}.ln_2.bias": lay["ln2"]["bias"][i],
+            f"{pre}.mlp.c_fc.weight": mlp["fc1"]["w"][i].T,
+            f"{pre}.mlp.c_fc.bias": mlp["fc1"]["b"][i],
+            f"{pre}.mlp.c_proj.weight": mlp["fc2"]["w"][i].T,
+            f"{pre}.mlp.c_proj.bias": mlp["fc2"]["b"][i]})
+    return {k: x.contiguous().half() for k, x in sd.items()}
+
+
+def hf_vit_state_dict(p: dict, cfg) -> dict:
+    """The port's ViT parameters as HuggingFace's CLIPModel names them (the
+    inverse of models.convert.from_hf_state_dict), fp16."""
+    v, t = p["vision"], p["text"]
+    patch = cfg.vision.patch
+    sd = {"logit_scale": p["logit_scale"],
+          "vision_model.embeddings.patch_embedding.weight":
+              v["patch_embed"].T.reshape(-1, 3, patch, patch),
+          "vision_model.embeddings.class_embedding": v["class_embed"],
+          "vision_model.embeddings.position_embedding.weight": v["pos_embed"],
+          "vision_model.pre_layrnorm.weight": v["ln_pre"]["scale"],
+          "vision_model.pre_layrnorm.bias": v["ln_pre"]["bias"],
+          "vision_model.post_layernorm.weight": v["ln_post"]["scale"],
+          "vision_model.post_layernorm.bias": v["ln_post"]["bias"],
+          "visual_projection.weight": v["proj"].T,
+          "text_model.embeddings.token_embedding.weight": t["token_embed"],
+          "text_model.embeddings.position_embedding.weight": t["pos_embed"],
+          "text_model.final_layer_norm.weight": t["ln_final"]["scale"],
+          "text_model.final_layer_norm.bias": t["ln_final"]["bias"],
+          "text_projection.weight": t["proj"].T}
+    for tower, lay in (("vision_model", v["layers"]),
+                       ("text_model", t["layers"])):
+        for i in range(lay["ln1"]["scale"].shape[0]):
+            pre = f"{tower}.encoder.layers.{i}"
+            for n, ln in (("layer_norm1", "ln1"), ("layer_norm2", "ln2")):
+                sd[f"{pre}.{n}.weight"] = lay[ln]["scale"][i]
+                sd[f"{pre}.{n}.bias"] = lay[ln]["bias"][i]
+            for n, key in (("q_proj", "q"), ("k_proj", "k"), ("v_proj", "v"),
+                           ("out_proj", "o")):
+                sd[f"{pre}.self_attn.{n}.weight"] = lay["attn"][key]["w"][i].T
+                sd[f"{pre}.self_attn.{n}.bias"] = lay["attn"][key]["b"][i]
+            for n in ("fc1", "fc2"):
+                sd[f"{pre}.mlp.{n}.weight"] = lay["mlp"][n]["w"][i].T
+                sd[f"{pre}.mlp.{n}.bias"] = lay["mlp"][n]["b"][i]
+    return {k: x.contiguous().half() for k, x in sd.items()}
+
+
+def one_batch(fa, tq, cfg, per_batch: dict, name: str) -> torch.Tensor:
+    """One batch of `cfg` through runner.run: its launches checked against
+    `per_batch` (every kernel it does not name: none), its logits."""
+    from ttl_tpu_torch import runner
+    probe = StepProbe(getattr(runner, step_factory(cfg)))
+    expect = {**dict.fromkeys(launch_counts(fa, tq), 0), **per_batch}
+    reset_counts(fa, tq)
+    drive(cfg, probe, cfg.sample_batch)
+    counts = launch_counts(fa, tq)
+    log(f"{name}: one batch, launches {counts}")
+    if len(probe.logits) != 1 or counts != expect:
+        raise AssertionError(f"{name}: expected {per_batch} launches in one "
+                             f"batch, got {counts} over "
+                             f"{len(probe.logits)} batches")
+    return probe.logits[0]
+
+
+def phase_checkpoints(fa, tq, build_dir) -> dict:
+    """`--checkpoint_path` with the two synthetic checkpoints: for each, one
+    batch from the file and one from the `.npz` that `save_pytree` makes of
+    the loaded params, which must give the same bits; and three loaded
+    leaves of the RN50 file against its tensors. Returns each run's
+    launches."""
+    import tempfile
+    from ttl_tpu_torch import runner
+    from ttl_tpu_torch.models.convert import save_pytree
+    from ttl_tpu_torch.models.zoo import get_arch
+    runs = {"RN50 prompt tuning from a checkpoint":
+            (RN50_PROMPT_FLAGS, "heads", {"K4 fwd": 48, "K4 bwd": 12}),
+            "main path from a checkpoint":
+            ((), None, {"K1": 15, "K2": 3})}
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        rn_sd = openai_rn_state_dict(seeded_weights("RN50", SEED + 31))
+        vit_sd = hf_vit_state_dict(seeded_weights("ViT-B/16", SEED + 32),
+                                   get_arch("ViT-B/16"))
+        files = {}
+        for name, sd in zip(runs, (rn_sd, vit_sd)):
+            files[name] = os.path.join(tmp, f"{len(files)}.pt")
+            torch.save(sd, files[name])
+            log(f"{name}: wrote {files[name]} "
+                f"({os.path.getsize(files[name]) / 1e6:.1f} MB, "
+                f"{len(sd)} fp16 tensors)")
+        for name, (flags, route, per_batch) in runs.items():
+            cfg = config(*flags, "--checkpoint_path", files[name])
+            with attention_route(fa, route):
+                from_file = one_batch(fa, tq, cfg, per_batch, name)
+                _, params = runner.load_model(cfg, torch.device("cuda"))
+                cache = files[name][:-3] + ".npz"
+                save_pytree(cache, params)
+                from_cache = one_batch(
+                    fa, tq, config(*flags, "--checkpoint_path", cache),
+                    per_batch, f"{name}, from the .npz")
+            same = torch.equal(from_file, from_cache)
+            log(f"{name}: logits from the file and from the .npz "
+                f"{'have the same bits' if same else 'differ'} "
+                f"(max |difference| "
+                f"{(from_file - from_cache).abs().max().item():.3e})")
+            if not same:
+                raise AssertionError(f"{name}: the .npz cache changed the "
+                                     "logits")
+            if name.startswith("RN50"):
+                q = rn_sd["transformer.resblocks.5.attn.in_proj_weight"]
+                spots = {
+                    "visual.conv1.weight": (params["vision"]["conv1"],
+                                            rn_sd["visual.conv1.weight"]),
+                    "visual.attnpool.c_proj.weight": (
+                        params["vision"]["attnpool"]["out"]["w"],
+                        rn_sd["visual.attnpool.c_proj.weight"].T),
+                    "transformer.resblocks.5 q": (
+                        params["text"]["layers"]["attn"]["q"]["w"][5],
+                        q[:q.shape[1]].T)}
+                for leaf, (loaded, file_t) in spots.items():
+                    if not torch.equal(loaded.cpu(),
+                                       file_t.to(loaded.dtype)):
+                        raise AssertionError(f"{leaf}: the loaded leaf is "
+                                             "not the file's tensor")
+                log(f"{name}: {', '.join(spots)} equal the file's tensors "
+                    f"after the layout change")
+            out[name] = {"launches": launch_counts(fa, tq)}
+            del params
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1382,10 +1622,14 @@ def main() -> int:
     phase_cocoop_load(lib.parent)
     plpd_path, plpd_int8 = phase_plpd(fa, tq)
     augmix_path = phase_augmix(fa, tq)
+    rn50_tpt, rn50_zero_shot = phase_resnet(fa, tq)
+    checkpoints = phase_checkpoints(fa, tq, lib.parent)
     paths = {"main path": main_path, "int8 main path": int8_path,
              "zero-shot": zero_shot, "text-LoRA (per_head)": text_path,
              "prompt tuning (heads)": prompt_path, "CoCoOp": cocoop_path,
-             "PLPD": plpd_path, "AugMix": augmix_path}
+             "PLPD": plpd_path, "AugMix": augmix_path,
+             "RN50 prompt tuning (heads)": rn50_tpt,
+             "RN50 zero-shot": rn50_zero_shot}
     log("steady samples/s, device busy share, device ms per batch, peak "
         "device memory: "
         + "; ".join(f"{name} {r['samples_per_s']:.3f}, "
@@ -1394,6 +1638,7 @@ def main() -> int:
                     for name, r in paths.items()))
     paths["TPT on LoRA"] = tpt_lora
     paths["PLPD, int8 prefix"] = plpd_int8
+    paths.update(checkpoints)
 
     def by_path(key):
         return {name: r["launches"][key] for name, r in paths.items()}

@@ -14,16 +14,33 @@ Chains and whole views: posterize, solarize and equalize step at
 thresholds, so an input an f32 rounding away from one (after a geometric op
 or the crop's resize, which sum in another order) lands a step away; at
 most 1 % of the values may differ by more than 1e-4 (measured: 0.05 % of a
-224-pixel view), and every other value lies within 1e-4.
+224-pixel view), and every other value lies within 1e-4. One fused step of
+TPT and of CoCoOp with AugMix views: 5e-4, the bound of their steps.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from ttl_tpu.adapt import cocoop as jco
+from ttl_tpu.adapt import ttl as jttl
+from ttl_tpu.config import TTLConfig as JTTLConfig
+from ttl_tpu.models import clip as jclip
+from ttl_tpu.models import prompts as jprompts
+from ttl_tpu.models.zoo import TEST_TINY as J_TINY
+from ttl_tpu.ops import attention as jfa
 from ttl_tpu.ops import augmix as jaug
 from ttl_tpu.ops.image import make_view_fn
+from ttl_tpu_torch.adapt import ttl as tttl
+from ttl_tpu_torch.config import TTLConfig
+from ttl_tpu_torch.models.convert import (cocoop_state_from_numpy,
+                                          params_from_numpy,
+                                          prompt_learner_from_numpy)
+from ttl_tpu_torch.models.zoo import TEST_TINY
+from ttl_tpu_torch.ops import attention as tfa
 from ttl_tpu_torch.ops import augmix as taug
 from ttl_tpu_torch.ops import image as timg
 
@@ -188,3 +205,77 @@ def test_chains_dispatch_per_slot_and_op(monkeypatch):
                       d["level"].flatten(0, 1), d["sign"].flatten(0, 1), aug)
     assert len(calls) == 6    # 3 slots x 2 ops
     assert sum(calls) == int(d["depth"].sum())
+
+
+@pytest.mark.parametrize("mode", ["tpt", "cocoop"])
+def test_fused_prompt_steps_with_augmix_match_jax(mode):
+    """`--aug_list` on the TPT (`--lora_encoder prompt`) and CoCoOp renders:
+    one fused step each from uint8 canvases, against the JAX package's
+    `make_fused_tpt_fn` / `make_fused_cocoop_fn`, every view and AugMix
+    draw replayed from `sample_key`. f32 at the `test-tiny` size; 5e-4, the
+    bound of the prompt-tuning and CoCoOp steps (tests/test_torch_text.py,
+    tests/test_torch_cocoop.py)."""
+    classes = ["goldfish", "tree_frog", "box turtle", "hen"]
+    aug, n_views = ("rotate", "color", "equalize", "posterize"), 8
+    kw = dict(arch="test-tiny", resolution=64, batch_size=n_views,
+              compute_dtype="float32", param_dtype="float32", seed=5,
+              tta_steps=1, selection_p=0.4, aug_ops=aug, aug_severity=SEV,
+              **({"lora_encoder": "prompt"} if mode == "tpt"
+                 else {"cocoop": True}))
+    jcfg, cfg = JTTLConfig(**kw), TTLConfig(**kw)
+    params = jax.tree.map(np.asarray, jclip.init_clip_params(
+        jax.random.PRNGKey(0), J_TINY, param_dtype=jnp.float32))
+    embed = jnp.asarray(params["text"]["token_embed"])
+    if mode == "tpt":
+        jstate = jprompts.init_prompt_learner(embed, classes)
+        tstate = prompt_learner_from_numpy(jstate, "cpu")
+        jfused = jttl.make_fused_tpt_fn(J_TINY, jcfg)
+        tfused = tttl.make_fused_tpt_fn(TEST_TINY, cfg)
+    else:
+        # a live meta-net, as in tests/test_torch_cocoop.py
+        jstate = jco.init_cocoop(embed, classes, J_TINY.vision.proj_dim,
+                                 jax.random.PRNGKey(3), "a_photo_of_a")
+        jstate = dataclasses.replace(
+            jstate, meta_b1=jnp.full_like(jstate.meta_b1, 0.5))
+        tstate = cocoop_state_from_numpy(jstate, "cpu")
+        jfused = jttl.make_fused_cocoop_fn(J_TINY, jcfg)
+        tfused = tttl.make_fused_cocoop_fn(TEST_TINY, cfg)
+    sizes = [(80, 80), (50, 72)]
+    rng = np.random.default_rng(4)
+    canv = np.zeros((len(sizes), 80, 80, 3), np.uint8)
+    for i, (h, w) in enumerate(sizes):
+        canv[i, :h, :w] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    hs = np.array([h for h, _ in sizes], np.int32)
+    ws = np.array([w for _, w in sizes], np.int32)
+    idxs = np.array([11, 4], np.int32)
+    keys = [jttl.sample_key(cfg.seed, int(i)) for i in idxs]
+    draws = stack_draws([{**jax_draws(k, n_views),
+                          **jax_aug_draws(k, n_views, aug)} for k in keys])
+    with jfa.force_mode("bshd"):
+        want = jax.tree.map(np.asarray, jfused(
+            params, jstate, jnp.asarray(canv), jnp.asarray(hs),
+            jnp.asarray(ws), jnp.asarray(idxs)))
+    with tfa.force_mode("bshd"):
+        got = tfused(params_from_numpy(params, "cpu"), tstate,
+                     torch.from_numpy(canv), torch.from_numpy(hs),
+                     torch.from_numpy(ws), draws)
+    if mode == "tpt":
+        (got, ctx), (want, jctx) = got, want
+        np.testing.assert_allclose(ctx.numpy(), jctx, rtol=5e-4, atol=5e-4)
+    names = ("logits", "losses") + (("adapted_logits",) if mode == "cocoop"
+                                    else ("zero_shot_logits",))
+    for name in names:
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   getattr(want, name), rtol=5e-4,
+                                   atol=5e-4, err_msg=name)
+    # AugMix reached the step: without it the losses differ
+    plain = dataclasses.replace(cfg, aug_ops=())
+    make = (tttl.make_fused_tpt_fn if mode == "tpt"
+            else tttl.make_fused_cocoop_fn)
+    with tfa.force_mode("bshd"):
+        res = make(TEST_TINY, plain)(params_from_numpy(params, "cpu"),
+                                     tstate, torch.from_numpy(canv),
+                                     torch.from_numpy(hs),
+                                     torch.from_numpy(ws), draws)
+    res = res[0] if mode == "tpt" else res
+    assert np.abs(res.losses.numpy() - want.losses).max() > 1e-4

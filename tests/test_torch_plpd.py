@@ -13,7 +13,9 @@ JAX's einsum contracts the image with the outer product of its two weight
 matrices, whose sum over a whole 224 x 224 window leaves it 1.2e-4 off the
 float64 result at unit-normal inputs. Whole steps, the JAX side on its
 einsum attention (f32 scores, as the port's default route): 5e-4, the bound
-of tests/test_torch_adapt.py. The threshold of each step is set in the widest
+of tests/test_torch_adapt.py; image-LoRA in each aug_type, and text-LoRA
+(`--lora_encoder text`), whose filter is shown to keep some views and drop
+others. The threshold of each step is set in the widest
 gap of the port's PLPD values near their median, far from every view's
 value, so that the filter keeps some views and drops others on both sides.
 """
@@ -26,6 +28,7 @@ import torch
 from ttl_tpu.adapt import ttl as jttl
 from ttl_tpu.config import TTLConfig
 from ttl_tpu.models.clip import init_clip_params
+from ttl_tpu.models.prompts import prompt_tokens
 from ttl_tpu.models.zoo import TEST_TINY as J_TINY
 from ttl_tpu.ops import attention as jfa
 from ttl_tpu.ops import quant as jq
@@ -40,6 +43,9 @@ from ttl_tpu_torch.ops import image as timg
 S, V, N_CLS, RANK, RES = 2, 8, 5, 4, 64
 WINDOW = (2, 3)
 KEY = 9
+# the classes of the text-LoRA case, whose class features come from the text
+# tower and these prompts
+CLASSES = ["goldfish", "tree_frog", "box turtle", "hen", "tench"]
 
 
 def jax_plpd_perms(key, cfg) -> np.ndarray:
@@ -146,10 +152,24 @@ def _perms(cfg):
                                       for k in _keys()]))
 
 
+def _tokens(cfg):
+    """The class-prompt table of text-LoRA, else None."""
+    if cfg.lora_encoder != "text":
+        return None
+    return np.asarray(prompt_tokens(CLASSES))
+
+
 def _threshold(cfg, params, text_cls, views, perms) -> float:
     """The middle of the widest gap between the port's first-step PLPD
-    values (sorted) in their middle half."""
+    values (sorted) in their middle half. In text mode the classifier is
+    the text tower's over the class prompts: at the first step the adapters'
+    B is zero, so they add nothing."""
     tp = params_from_numpy(params, "cpu")
+    if cfg.lora_encoder == "text":
+        with torch.no_grad():
+            text_cls = tclip.l2_normalize(tclip.text_features(
+                tp["text"], torch.from_numpy(_tokens(cfg)), TEST_TINY.text,
+                compute_dtype=torch.float32)).numpy()
     flat = torch.from_numpy(views)
     x_prime = (tttl.patch_shuffle(flat.flatten(0, 1),
                                   perms[:, 0].flatten(0, 1), cfg.patch_len)
@@ -173,26 +193,36 @@ def _threshold(cfg, params, text_cls, views, perms) -> float:
 
 
 def _jax_step(cfg, params, adapters0, text_cls, views):
+    tokens = _tokens(cfg)
     with jfa.force_mode(""):
-        res = jttl.make_batched_ttl_fn(J_TINY, cfg)(
+        res = jttl.make_batched_ttl_fn(
+            J_TINY, cfg, tokens=None if tokens is None else jnp.asarray(
+                tokens))(
             params, jnp.asarray(text_cls), adapters0, jnp.asarray(views),
             _keys())
         return np.asarray(res.logits)
 
 
 def _torch_step(cfg, params, adapters0, text_cls, views):
-    return tttl.make_batched_ttl_fn(TEST_TINY, cfg)(
+    return tttl.make_batched_ttl_fn(TEST_TINY, cfg, tokens=_tokens(cfg))(
         params_from_numpy(params, "cpu"), torch.from_numpy(text_cls),
         adapters_from_numpy(adapters0, "cpu"), torch.from_numpy(views),
         _perms(cfg)).logits.numpy()
 
 
-@pytest.mark.parametrize("aug_type,tta_steps", [("patch", 1), ("patch", 2),
-                                                ("pixel", 1), ("occ", 1)])
-def test_plpd_step_matches_jax(setup, aug_type, tta_steps):
+@pytest.mark.parametrize(
+    "aug_type,tta_steps,lora_encoder",
+    [("patch", 1, "image"), ("patch", 2, "image"), ("pixel", 1, "image"),
+     ("occ", 1, "image"), ("patch", 1, "text")],
+    ids=["patch-1", "patch-2", "pixel-1", "occ-1", "patch-1-text"])
+def test_plpd_step_matches_jax(setup, monkeypatch, aug_type, tta_steps,
+                               lora_encoder):
+    """Image-LoRA in each aug_type, and text-LoRA (`--lora_encoder text
+    --filter_plpd 1`: the counterfactual's logits take the class features
+    of the step's own adapters)."""
     params, adapters0, text_cls, views = setup
     kw = dict(tta_steps=tta_steps, aug_type=aug_type, occlusion_size=24,
-              row_start=16, column_start=8)
+              row_start=16, column_start=8, lora_encoder=lora_encoder)
     probe = _cfg(filter_plpd=1, **kw)
     threshold = _threshold(probe, params, text_cls, views, _perms(probe))
     cfg = _cfg(filter_plpd=1, plpd_threshold=threshold, **kw)
@@ -200,8 +230,24 @@ def test_plpd_step_matches_jax(setup, aug_type, tta_steps):
     got = _torch_step(cfg, params, adapters0, text_cls, views)
     np.testing.assert_allclose(got, want, rtol=5e-4, atol=5e-4)
     # the filter changed the step, so the comparison is not vacuous
-    unfiltered = _torch_step(_cfg(**kw), params, adapters0, text_cls, views)
-    assert np.abs(got - unfiltered).max() > 1e-3
+    if lora_encoder == "image":
+        unfiltered = _torch_step(_cfg(**kw), params, adapters0, text_cls,
+                                 views)
+        assert np.abs(got - unfiltered).max() > 1e-3
+    else:
+        # AdamW's first update is lr * sign(g), and the text adapters'
+        # gradient keeps its signs over the views the filter drops, so the
+        # logits barely move: the filter shows in the views it keeps
+        kept, deyo = [], tttl.deyo_loss
+
+        def recording(*args, **kwargs):
+            loss, aux = deyo(*args, **kwargs)
+            kept.append(aux["keep"].sum(-1))
+            return loss, aux
+
+        monkeypatch.setattr(tttl, "deyo_loss", recording)
+        _torch_step(cfg, params, adapters0, text_cls, views)
+        assert ((kept[0] > 0) & (kept[0] < V)).all(), kept
 
 
 def test_plpd_step_with_int8_prefix_matches_jax(setup):

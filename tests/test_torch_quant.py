@@ -1,7 +1,8 @@
 """The int8 frozen prefix of the PyTorch port against `ttl_tpu.ops.quant`.
 
 - `quantize_linear` and `attach_prefix_quant` equal the JAX ones leaf for
-  leaf, and `quant_prefix_len` agrees per mode.
+  leaf, and `quant_prefix_len` agrees per mode; on a ResNet tower both are
+  no-ops, as in the JAX package.
 - `linear_q_plain` equals the JAX `linear_q` bit for bit at f32: the row
   scale, the int8 codes, the exact int32 sum and the epilogue, where XLA
   fuses `acc * (s * col_scale) + b` into one fused multiply-add. At bf16
@@ -34,12 +35,14 @@ import torch
 from ttl_tpu.config import TTLConfig
 from ttl_tpu.models import clip as jclip
 from ttl_tpu.models.zoo import TEST_TINY as J_TINY
+from ttl_tpu.models.zoo import get_arch as j_get_arch
 from ttl_tpu.ops import attention as jfa
 from ttl_tpu.ops import quant as jq
 from ttl_tpu.ops.quant_matmul import quantized_matmul
 from ttl_tpu_torch.models import clip as tclip
 from ttl_tpu_torch.models.convert import params_from_numpy, params_to_numpy
-from ttl_tpu_torch.models.zoo import TEST_TINY
+from ttl_tpu_torch.models.resnet import ResNetVisionConfig
+from ttl_tpu_torch.models.zoo import TEST_TINY, get_arch
 from ttl_tpu_torch.ops import quant as tq
 
 LAYERS = TEST_TINY.vision.layers
@@ -325,9 +328,22 @@ def test_int8_vision_prefix_matches_jax(qsetup, jparams, upto):
                        n_layers=upto)
 
 
-def test_encode_image_refuses_a_resnet_tower():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tclip.encode_image({}, torch.zeros(1, 3, 8, 8), object())
+@pytest.mark.parametrize("mode", [{}, {"tta_steps": 0},
+                                  {"lora_encoder": "prompt"}])
+def test_int8_prefix_is_a_no_op_on_a_resnet_tower(mode):
+    """`--prefix_quant int8` on RN50 (a tiny tower of its kind): no layer to
+    quantise, the params returned as they are, as in the JAX package."""
+    cfg = TTLConfig(arch="RN50", prefix_quant="int8", **mode)
+    assert tq.quant_prefix_len(cfg, get_arch("RN50")) == \
+        jq.quant_prefix_len(cfg, j_get_arch("RN50")) == 0
+    tiny = ResNetVisionConfig(layers=(1, 1, 1, 1), width=16, heads=4,
+                              proj_dim=16, image_size=64)
+    params = tclip.init_clip_params(
+        tclip.CLIPConfig(vision=tiny, text=TEST_TINY.text),
+        torch.Generator().manual_seed(0), device="cpu")
+    assert tq.attach_prefix_quant(params, 4, drop_fp=True) is params
+    jparams = params_to_numpy(params)
+    assert jq.attach_prefix_quant(jparams, 4, drop_fp=True) is jparams
 
 
 # --------------------------------------- K5's launches, emulated on the CPU

@@ -13,8 +13,12 @@
   tower and the ensemble classifier.
 - The port's runtime imports no JAX; its CLI refuses to run without CUDA and
   raises on flags it does not cover yet (`--filter_plpd` and `--aug_list`
-  are covered now: tests/test_torch_plpd.py, tests/test_torch_augmix.py).
+  are covered now: tests/test_torch_plpd.py, tests/test_torch_augmix.py;
+  the ResNet archs and `--checkpoint_path`: tests/test_torch_resnet.py,
+  tests/test_torch_checkpoint.py). Image-LoRA on a ResNet arch raises the
+  JAX package's ValueError; a missing checkpoint, FileNotFoundError.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -30,8 +34,10 @@ from ttl_tpu.adapt.ttl import make_fused_ttl_fn as j_make_fused
 from ttl_tpu.adapt.ttl import make_fused_zeroshot_fn as j_make_zeroshot
 from ttl_tpu.adapt.ttl import sample_key
 from ttl_tpu.config import TTLConfig
+from ttl_tpu import runner as jrunner
 from ttl_tpu.data.views import ArrayDataset
 from ttl_tpu.models.clip import init_clip_params
+from ttl_tpu.models import zoo as jzoo
 from ttl_tpu.models.zoo import TEST_TINY as J_TINY
 from ttl_tpu.ops import attention as jfa
 from ttl_tpu.ops import quant as jq
@@ -40,6 +46,8 @@ from ttl_tpu_torch import cli as tcli
 from ttl_tpu_torch import runner as trunner
 from ttl_tpu_torch.adapt.ttl import make_fused_ttl_fn, make_fused_zeroshot_fn
 from ttl_tpu_torch.models.convert import adapters_from_numpy, params_from_numpy
+from ttl_tpu_torch.data.views import ArrayDataset as TArrayDataset
+from ttl_tpu_torch.models import zoo as tzoo
 from ttl_tpu_torch.models.zoo import TEST_TINY
 
 V, RANK, N_CLS, CANVAS = 8, 4, 6, 80
@@ -176,14 +184,42 @@ def test_cli_refuses_to_run_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh_shape", "2"],
-    ["--test_sets", "bongard"], ["--checkpoint_path", "clip.pt"],
-    ["-a", "RN50"], ["-a", "RN101"],
+    ["--test_sets", "bongard"],
 ])
 def test_uncovered_flags_raise(flags):
     args = tcli.build_parser().parse_args(["data", *flags])
     cfg = tcli.config_from_args(args)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trunner.run(cfg, device="cpu", datasets={})
+
+
+@pytest.mark.parametrize("arch", ["RN50", "RN101"])
+def test_image_lora_on_a_resnet_arch_raises_jax_value_error(arch):
+    """`-a RN50 --lora_encoder image` (the default mode): no adapters for
+    the tower, and evaluate_dataset raises the JAX package's ValueError on
+    a tiny dataset, before it reads any weight."""
+    args = tcli.build_parser().parse_args(["data", "-a", arch])
+    cfg = tcli.config_from_args(args)
+    images = np.zeros((2, 40, 56, 3), np.uint8)
+    labels = np.array([3, 1])
+    assert trunner.make_adapters0(cfg, tzoo.get_arch(arch), "cpu") is None
+    with pytest.raises(ValueError, match="ResNet vision tower") as got:
+        trunner.evaluate_dataset("A", cfg, tzoo.get_arch(arch), None, None,
+                                 device="cpu",
+                                 dataset=TArrayDataset(images, labels))
+    with pytest.raises(ValueError) as want:
+        jrunner.evaluate_dataset("A", TTLConfig(**dataclasses.asdict(cfg)),
+                                 jzoo.get_arch(arch), None, None,
+                                 dataset=ArrayDataset(images, labels))
+    assert str(got.value) == str(want.value)
+
+
+def test_missing_checkpoint_raises_file_not_found(tmp_path):
+    path = str(tmp_path / "clip.pt")
+    args = tcli.build_parser().parse_args(["data", "--checkpoint_path",
+                                           path])
+    with pytest.raises(FileNotFoundError, match="clip.pt"):
+        trunner.run(tcli.config_from_args(args), device="cpu", datasets={})
 
 
 def test_prefix_quant_other_than_int8_raises_value_error():

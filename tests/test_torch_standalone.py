@@ -27,14 +27,19 @@ from ttl_tpu_torch.tokenizer import bpe as tbpe
 from ttl_tpu_torch.utils import meters as tmeters
 
 RUN = """
-import sys
+import os, sys, tempfile
 import numpy as np
+import torch
 import ttl_tpu_torch.cli, ttl_tpu_torch.runner, ttl_tpu_torch.adapt.ttl
 import ttl_tpu_torch.models.prompts, ttl_tpu_torch.ops.quant
 import ttl_tpu_torch.adapt.cocoop, ttl_tpu_torch.ops.ln_matmul
-import ttl_tpu_torch.utils.checkpoint
+import ttl_tpu_torch.utils.checkpoint, ttl_tpu_torch.models.convert
+import ttl_tpu_torch.models.resnet
 from ttl_tpu_torch.config import TTLConfig
 from ttl_tpu_torch.data.views import ArrayDataset
+from ttl_tpu_torch.models.clip import CLIPConfig
+from ttl_tpu_torch.models.resnet import ResNetVisionConfig
+from ttl_tpu_torch.models.zoo import TEST_TINY
 
 rng = np.random.default_rng(0)
 ds = ArrayDataset(rng.integers(0, 256, (2, 40, 56, 3), dtype=np.uint8),
@@ -48,6 +53,24 @@ for mode in ({}, {"lora_encoder": "text"}, {"lora_encoder": "prompt"},
     top1, top5 = ttl_tpu_torch.runner.run(cfg, device="cpu",
                                           datasets={"A": ds})["A"]
     assert 0.0 <= top1 <= top5 <= 100.0
+# a tiny ResNet tower, its weights through a checkpoint cache
+tiny = CLIPConfig(vision=ResNetVisionConfig(layers=(1, 1, 1, 1), width=16,
+                                            heads=4, proj_dim=16,
+                                            image_size=64),
+                  text=TEST_TINY.text)
+cfg = TTLConfig(arch="RN50", resolution=64, batch_size=8, sample_batch=2,
+                compute_dtype="float32", param_dtype="float32", workers=1,
+                lora_encoder="prompt")
+params = ttl_tpu_torch.models.clip.init_clip_params(
+    tiny, torch.Generator().manual_seed(0), device="cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    cache = os.path.join(tmp, "rn.npz")
+    ttl_tpu_torch.models.convert.save_pytree(cache, params)
+    tree, _ = ttl_tpu_torch.models.convert.load_checkpoint(cache, tiny)
+params = ttl_tpu_torch.models.convert.params_from_numpy(tree, "cpu")
+top1, top5 = ttl_tpu_torch.runner.evaluate_dataset(
+    "cifar10", cfg, tiny, params, None, device="cpu", dataset=ds)
+assert 0.0 <= top1 <= top5 <= 100.0
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "ttl_tpu"))
 assert not foreign, foreign

@@ -46,7 +46,9 @@ PATHS = {"main": ((), None, "main path"),
          "prompt": (("--lora_encoder", "prompt"), "heads", "prompt tuning"),
          "tpt_lora": (("--deyo_selection", "False"), None, "TPT on LoRA"),
          "cocoop": (("--cocoop",), None, "CoCoOp"),
-         "plpd": (cs.PLPD_FLAGS, None, "PLPD")}
+         "plpd": (cs.PLPD_FLAGS, None, "PLPD"),
+         "rn50_prompt": (cs.RN50_PROMPT_FLAGS, "heads",
+                         "RN50 prompt tuning")}
 
 
 def views(seeds) -> None:

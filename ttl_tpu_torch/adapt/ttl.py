@@ -84,15 +84,10 @@ def check_supported(cfg: TTLConfig) -> None:
     """Raise NotImplementedError for what this port does not cover yet,
     naming the ROADMAP (Queue 1) item that brings it."""
     check_aug_ops(cfg.aug_ops)
-    unsupported = [
-        (cfg.checkpoint_path is not None, "--checkpoint_path", 14),
-        (cfg.mesh_shape is not None, "--mesh_shape", 17),
-    ]
-    for hit, what, item in unsupported:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to ttl_tpu_torch yet "
-                f"(ROADMAP Queue 1, item {item})")
+    if cfg.mesh_shape is not None:
+        raise NotImplementedError("--mesh_shape is not ported to "
+                                  "ttl_tpu_torch yet (ROADMAP Queue 1, "
+                                  "item 17)")
 
 
 # ------------------------------------------------------ PLPD counterfactuals

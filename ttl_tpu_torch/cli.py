@@ -30,7 +30,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test_sets", type=str, default=d.test_sets,
                    help="test dataset (multiple datasets split by slash)")
     p.add_argument("--dataset_mode", type=str, default=d.dataset_mode)
-    p.add_argument("-a", "--arch", metavar="ARCH", default=d.arch)
+    p.add_argument("-a", "--arch", metavar="ARCH", default=d.arch,
+                   help="ViT-B/16, ViT-B/32, ViT-L/14, ViT-L/14@336px, or a "
+                        "ResNet tower (RN50, RN101, RN50x4, RN50x16, "
+                        "RN50x64: every mode but image-LoRA adaptation)")
     p.add_argument("--resolution", default=d.resolution, type=int)
     p.add_argument("-j", "--workers", default=d.workers, type=int)
     p.add_argument("-b", "--batch-size", dest="batch_size",
@@ -108,8 +111,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "fast programs where the per-step round trip "
                         "dominates)")
     p.add_argument("--checkpoint_path", default=d.checkpoint_path, type=str,
-                   help="local CLIP checkpoint (HF .bin/.safetensors or "
-                        "OpenAI .pt)")
+                   help="local CLIP checkpoint, read with -a's config: HF "
+                        "(.bin/.pt/.safetensors) or OpenAI (.pt, ViT or "
+                        "ResNet) layout, or a .npz cache written by "
+                        "models.convert.save_pytree of either package; "
+                        "without one the weights are random")
     p.add_argument("--compute_dtype", default=d.compute_dtype,
                    choices=["bfloat16", "float32"])
     p.add_argument("--prefix_quant", default=d.prefix_quant,

@@ -35,12 +35,16 @@ With `fused_ln=True` (the frozen vision tower of the CoCoOp step, under
 them: q, k, v and fc1 each come from one `ops.ln_matmul.ln_matmul` call, K6
 on the card, four launches a layer. It is forward only: LoRA adapters or an
 input that a gradient would flow through raise.
+
+`encode_image` dispatches a ResNet tower (`models/resnet.py`) to
+`resnet_features`, and `init_clip_params` draws one where the config asks
+for it.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -49,6 +53,7 @@ import torch.utils.checkpoint
 from ..ops.attention import attention, env_choice, fused_mode
 from ..ops.ln_matmul import ln_matmul
 from ..ops.quant import linear_q
+from .resnet import ResNetVisionConfig, init_resnet_params, resnet_features
 
 Params = Dict[str, Any]
 
@@ -85,7 +90,7 @@ class TextConfig(TowerConfig):
 
 @dataclasses.dataclass(frozen=True)
 class CLIPConfig:
-    vision: VisionConfig
+    vision: Union[VisionConfig, ResNetVisionConfig]
     text: TextConfig
 
 
@@ -132,8 +137,12 @@ def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
 
 
 def tree_map(fn, tree):
+    """fn over every leaf of a tree of dicts and lists (a ResNet tower keeps
+    its blocks in lists)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -361,15 +370,20 @@ def vision_features(p: Params, images: torch.Tensor, cfg: VisionConfig, *,
 
 
 def encode_image(p: Params, images: torch.Tensor, vision_cfg, *,
-                 compute_dtype=torch.bfloat16,
-                 fused_ln: bool = False) -> torch.Tensor:
-    """Backbone dispatcher, frozen features: the ViT tower; the ResNet
-    towers raise until they are ported."""
-    if not isinstance(vision_cfg, VisionConfig):
-        raise NotImplementedError("the ResNet vision towers are not ported "
-                                  "yet (ROADMAP Queue 1, item 14)")
-    return vision_features(p, images, vision_cfg, compute_dtype=compute_dtype,
-                           fused_ln=fused_ln)
+                 compute_dtype=torch.bfloat16, fused_ln: bool = False,
+                 **lora_kw) -> torch.Tensor:
+    """Backbone dispatcher: the ViT tower (VisionConfig) or the ModifiedResNet
+    (ResNetVisionConfig). The LoRA kwargs of `vision_features` apply to the
+    ViT only, as in the reference; a ResNet given adapters raises. A ResNet
+    has no layernorm to fold, so it ignores `fused_ln`."""
+    if isinstance(vision_cfg, VisionConfig):
+        return vision_features(p, images, vision_cfg,
+                               compute_dtype=compute_dtype, fused_ln=fused_ln,
+                               **lora_kw)
+    if lora_kw.get("adapters") is not None:
+        raise ValueError("LoRA adapters require a ViT backbone "
+                         "(the reference's TTL path is ViT-only)")
+    return resnet_features(p, images, vision_cfg, compute_dtype=compute_dtype)
 
 
 def _pool_eot(x: torch.Tensor, tokens: torch.Tensor, p: Params,
@@ -482,9 +496,30 @@ def init_clip_params(cfg: CLIPConfig, gen: torch.Generator, *,
                      device, param_dtype=torch.float32) -> Params:
     """Random weights in the JAX package's distributions and layout, drawn
     from `gen` on the host: for runs that have no checkpoint. Layernorm
-    parameters and logit_scale stay f32, every other leaf is param_dtype."""
+    parameters and logit_scale stay f32, every other leaf is param_dtype;
+    a ResNet tower keeps its batchnorms and attention pool in f32
+    (`init_resnet_params`)."""
     v, t = cfg.vision, cfg.text
-    vision = {
+    if isinstance(v, ResNetVisionConfig):
+        vision = init_resnet_params(v, gen, device=device,
+                                    param_dtype=param_dtype)
+    else:
+        vision = _placed(_init_vit_vision(gen, v), device, param_dtype)
+    text = {
+        "token_embed": _normal(gen, (t.vocab, t.hidden), 0.02),
+        "pos_embed": _normal(gen, (t.ctx, t.hidden), 0.01),
+        "layers": _init_layers(gen, t.layers, t.hidden, t.mlp_ratio),
+        "ln_final": _init_ln(t.hidden),
+        "proj": _normal(gen, (t.hidden, t.proj_dim), 0.02),
+    }
+    return {"vision": vision,
+            "text": _placed(text, device, param_dtype),
+            "logit_scale": torch.tensor(math.log(1.0 / 0.07),
+                                        dtype=torch.float32, device=device)}
+
+
+def _init_vit_vision(gen: torch.Generator, v: VisionConfig) -> Params:
+    return {
         "patch_embed": _normal(gen, (3 * v.patch * v.patch, v.hidden), 0.02),
         "class_embed": _normal(gen, (v.hidden,), 0.02),
         "pos_embed": _normal(gen, (v.seq_len, v.hidden), 0.02),
@@ -493,15 +528,3 @@ def init_clip_params(cfg: CLIPConfig, gen: torch.Generator, *,
         "ln_post": _init_ln(v.hidden),
         "proj": _normal(gen, (v.hidden, v.proj_dim), 0.02),
     }
-    text = {
-        "token_embed": _normal(gen, (t.vocab, t.hidden), 0.02),
-        "pos_embed": _normal(gen, (t.ctx, t.hidden), 0.01),
-        "layers": _init_layers(gen, t.layers, t.hidden, t.mlp_ratio),
-        "ln_final": _init_ln(t.hidden),
-        "proj": _normal(gen, (t.hidden, t.proj_dim), 0.02),
-    }
-
-    return {"vision": _placed(vision, device, param_dtype),
-            "text": _placed(text, device, param_dtype),
-            "logit_scale": torch.tensor(math.log(1.0 / 0.07),
-                                        dtype=torch.float32, device=device)}

@@ -1,11 +1,23 @@
-"""Weight bridge between the JAX package's parameter pytrees and the port.
+"""Weight bridge between the JAX package's parameter pytrees and the port,
+and CLIP checkpoint loading.
 
-The JAX package keeps parameters as nested dicts of arrays in the layout the
-port uses too ([in, out] linears, layers stacked on axis 0), so the bridge is
-one tensor per leaf; a tower whose q, k and v are fused into one `qkv`
-projection (`fuse_qkv_params` of either package) bridges the same way. `np.asarray` of a JAX bfloat16 array is an ml_dtypes
-array that `torch.from_numpy` refuses; such leaves go through float32 and
-back to bfloat16, which is exact.
+The JAX package keeps parameters as nested dicts (and, for a ResNet tower's
+blocks, lists) of arrays in the layout the port uses too ([in, out] linears,
+layers stacked on axis 0), so the bridge is one tensor per leaf; a tower
+whose q, k and v are fused into one `qkv` projection (`fuse_qkv_params` of
+either package) bridges the same way. The one change of layout: the conv
+kernels of a ResNet tower (a dict that holds `attnpool`), HWIO in the JAX
+package, OIHW in the port. `np.asarray` of a JAX bfloat16 array is an
+ml_dtypes array that `torch.from_numpy` refuses; such leaves go through
+float32 and back to bfloat16, which is exact.
+
+Checkpoints (the counterpart of the checkpoint half of
+`ttl_tpu/models/convert.py`, numpy and torch only): HuggingFace `CLIPModel`
+and OpenAI `clip` state dicts (ViT and ResNet) convert to a numpy tree in
+the JAX package's layout, which `params_from_numpy` then moves to the
+device. `save_pytree` writes that layout to a flat `.npz` under the keys
+`jax.tree_util.keystr` gives, so each package reads the other's cache.
+Conversion runs once at load time, on the host.
 """
 from __future__ import annotations
 
@@ -13,6 +25,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from .clip import CLIPConfig, TextConfig, VisionConfig
+from .resnet import ResNetVisionConfig, convert_openai_resnet
 
 
 def _is_bf16(a: np.ndarray) -> bool:
@@ -47,16 +62,24 @@ def params_from_numpy(tree: Any, device, param_dtype: Optional[torch.dtype]
     param_dtype None keeps every leaf's own dtype. Otherwise leaves with two
     or more axes become param_dtype and the rest float32, the rule the JAX
     runner applies to converted checkpoints. The int8 prefix copy under
-    `prefix_q` keeps its own types either way."""
-    if isinstance(tree, dict):
-        return {k: (_prefix_q_from_numpy(v, device) if k == "prefix_q"
-                    else params_from_numpy(v, device, param_dtype))
-                for k, v in tree.items()}
-    a = np.asarray(tree)
-    if param_dtype is None:
-        return tensor_from_numpy(a, device)
-    return tensor_from_numpy(a, device,
-                             param_dtype if a.ndim >= 2 else torch.float32)
+    `prefix_q` keeps its own types either way. A ResNet tower's conv
+    kernels go from HWIO to OIHW."""
+    def walk(node, in_resnet):
+        if isinstance(node, dict):
+            in_resnet = in_resnet or "attnpool" in node
+            return {k: (_prefix_q_from_numpy(v, device) if k == "prefix_q"
+                        else walk(v, in_resnet)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, in_resnet) for v in node]
+        a = np.asarray(node)
+        if in_resnet and a.ndim == 4:
+            a = np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+        if param_dtype is None:
+            return tensor_from_numpy(a, device)
+        return tensor_from_numpy(a, device,
+                                 param_dtype if a.ndim >= 2 else torch.float32)
+
+    return walk(tree, False)
 
 
 def adapters_from_numpy(tree: Any, device) -> Any:
@@ -102,8 +125,252 @@ def cocoop_state_from_numpy(state: Any, device):
 
 
 def params_to_numpy(tree: Any) -> Any:
-    """The port's parameters -> numpy (bfloat16 leaves as float32)."""
+    """The port's parameters -> numpy in the JAX package's layout (bfloat16
+    leaves as float32, a ResNet tower's conv kernels HWIO)."""
+    def walk(node, in_resnet):
+        if isinstance(node, dict):
+            in_resnet = in_resnet or "attnpool" in node
+            return {k: walk(v, in_resnet) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, in_resnet) for v in node]
+        t = node.detach().cpu()
+        a = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        if in_resnet and a.ndim == 4:
+            a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+        return a
+
+    return walk(tree, False)
+
+
+# ------------------------------------------------------------- checkpoints
+
+def _np(x) -> np.ndarray:
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _ln(sd, prefix):
+    return {"scale": _np(sd[f"{prefix}.weight"]).astype(np.float32),
+            "bias": _np(sd[f"{prefix}.bias"]).astype(np.float32)}
+
+
+def _linear_t(sd, prefix, dtype):
+    out = {"w": _np(sd[f"{prefix}.weight"]).T.astype(dtype)}
+    if f"{prefix}.bias" in sd:
+        out["b"] = _np(sd[f"{prefix}.bias"]).astype(dtype)
+    return out
+
+
+def _stack(dicts):
+    """Per-layer trees of one structure -> one tree, leaves stacked on a
+    new leading layer axis."""
+    if isinstance(dicts[0], dict):
+        return {k: _stack([d[k] for d in dicts]) for k in dicts[0]}
+    return np.stack(dicts)
+
+
+def _hf_layer(sd, prefix, dtype):
+    return {
+        "ln1": _ln(sd, f"{prefix}.layer_norm1"),
+        "ln2": _ln(sd, f"{prefix}.layer_norm2"),
+        "attn": {
+            "q": _linear_t(sd, f"{prefix}.self_attn.q_proj", dtype),
+            "k": _linear_t(sd, f"{prefix}.self_attn.k_proj", dtype),
+            "v": _linear_t(sd, f"{prefix}.self_attn.v_proj", dtype),
+            "o": _linear_t(sd, f"{prefix}.self_attn.out_proj", dtype),
+        },
+        "mlp": {
+            "fc1": _linear_t(sd, f"{prefix}.mlp.fc1", dtype),
+            "fc2": _linear_t(sd, f"{prefix}.mlp.fc2", dtype),
+        },
+    }
+
+
+def from_hf_state_dict(sd, cfg: CLIPConfig, param_dtype=np.float32):
+    """HF CLIPModel.state_dict() -> {vision, text, logit_scale} numpy tree
+    (the JAX package's layout)."""
+    v, t = cfg.vision, cfg.text
+    # conv [out, in, kh, kw] -> matmul [in*kh*kw, out]
+    patch = _np(sd["vision_model.embeddings.patch_embedding.weight"])
+    vision = {
+        "patch_embed": patch.reshape(v.hidden, -1).T.astype(param_dtype),
+        "class_embed": _np(sd["vision_model.embeddings.class_embedding"]
+                           ).astype(param_dtype),
+        "pos_embed": _np(sd["vision_model.embeddings.position_embedding.weight"]
+                         ).astype(param_dtype),
+        # "pre_layrnorm" is HF's actual (misspelled) parameter name
+        "ln_pre": _ln(sd, "vision_model.pre_layrnorm"),
+        "layers": _stack([_hf_layer(sd, f"vision_model.encoder.layers.{i}",
+                                    param_dtype) for i in range(v.layers)]),
+        "ln_post": _ln(sd, "vision_model.post_layernorm"),
+        "proj": _np(sd["visual_projection.weight"]).T.astype(param_dtype),
+    }
+    text = {
+        "token_embed": _np(sd["text_model.embeddings.token_embedding.weight"]
+                           ).astype(param_dtype),
+        "pos_embed": _np(sd["text_model.embeddings.position_embedding.weight"]
+                         ).astype(param_dtype),
+        "layers": _stack([_hf_layer(sd, f"text_model.encoder.layers.{i}",
+                                    param_dtype) for i in range(t.layers)]),
+        "ln_final": _ln(sd, "text_model.final_layer_norm"),
+        "proj": _np(sd["text_projection.weight"]).T.astype(param_dtype),
+    }
+    return {"vision": vision, "text": text,
+            "logit_scale": _np(sd["logit_scale"]).astype(np.float32)}
+
+
+def _openai_layer(sd, prefix, d, dtype):
+    wqkv = _np(sd[f"{prefix}.attn.in_proj_weight"])  # [3d, d]
+    bqkv = _np(sd[f"{prefix}.attn.in_proj_bias"])
+    qkv = [{"w": wqkv[i * d:(i + 1) * d].T.astype(dtype),
+            "b": bqkv[i * d:(i + 1) * d].astype(dtype)} for i in range(3)]
+    return {
+        "ln1": _ln(sd, f"{prefix}.ln_1"),
+        "ln2": _ln(sd, f"{prefix}.ln_2"),
+        "attn": {"q": qkv[0], "k": qkv[1], "v": qkv[2],
+                 "o": _linear_t(sd, f"{prefix}.attn.out_proj", dtype)},
+        "mlp": {"fc1": _linear_t(sd, f"{prefix}.mlp.c_fc", dtype),
+                "fc2": _linear_t(sd, f"{prefix}.mlp.c_proj", dtype)},
+    }
+
+
+def _openai_text(sd, t, param_dtype):
+    return {
+        "token_embed": _np(sd["token_embedding.weight"]).astype(param_dtype),
+        "pos_embed": _np(sd["positional_embedding"]).astype(param_dtype),
+        "layers": _stack([_openai_layer(
+            sd, f"transformer.resblocks.{i}", t.hidden, param_dtype)
+            for i in range(t.layers)]),
+        "ln_final": _ln(sd, "ln_final"),
+        "proj": _np(sd["text_projection"]).astype(param_dtype),
+    }
+
+
+def from_openai_state_dict(sd, cfg: CLIPConfig, param_dtype=np.float32):
+    """OpenAI clip .pt state dict -> numpy tree (the JAX package's layout),
+    for ViT ('visual.conv1' patchifies) and ModifiedResNet
+    ('visual.attnpool' present) checkpoints."""
+    v, t = cfg.vision, cfg.text
+    if "visual.attnpool.positional_embedding" in sd:  # RN50 family
+        return {"vision": convert_openai_resnet(sd, v, param_dtype),
+                "text": _openai_text(sd, t, param_dtype),
+                "logit_scale": _np(sd["logit_scale"]).astype(np.float32)}
+    patch = _np(sd["visual.conv1.weight"]).reshape(v.hidden, -1).T
+    vision = {
+        "patch_embed": patch.astype(param_dtype),
+        "class_embed": _np(sd["visual.class_embedding"]).astype(param_dtype),
+        "pos_embed": _np(sd["visual.positional_embedding"]).astype(param_dtype),
+        "ln_pre": _ln(sd, "visual.ln_pre"),
+        "layers": _stack([_openai_layer(
+            sd, f"visual.transformer.resblocks.{i}", v.hidden, param_dtype)
+            for i in range(v.layers)]),
+        "ln_post": _ln(sd, "visual.ln_post"),
+        "proj": _np(sd["visual.proj"]).astype(param_dtype),  # already [in,out]
+    }
+    return {"vision": vision, "text": _openai_text(sd, t, param_dtype),
+            "logit_scale": _np(sd["logit_scale"]).astype(np.float32)}
+
+
+def infer_config_from_openai(sd) -> CLIPConfig:
+    """The architecture of an OpenAI state dict, from its shapes alone (the
+    reference's build_model derivation)."""
+    def shape(k):
+        return _np(sd[k]).shape
+
+    def count(prefix, part):
+        return len({k.split(".")[part] for k in sd if k.startswith(prefix)})
+
+    t_width = shape("ln_final.weight")[0]
+    t_layers = count("transformer.resblocks", 2)
+    vocab, ctx = shape("token_embedding.weight")[0],         shape("positional_embedding")[0]
+    if "visual.attnpool.positional_embedding" in sd:  # ModifiedResNet
+        pos = shape("visual.attnpool.positional_embedding")
+        embed_dim = shape("visual.attnpool.c_proj.weight")[0]
+        vision = ResNetVisionConfig(
+            layers=tuple(count(f"visual.layer{s + 1}.", 2) for s in range(4)),
+            width=shape("visual.conv3.weight")[0], heads=pos[1] // 64,
+            proj_dim=embed_dim,
+            image_size=int(round((pos[0] - 1) ** 0.5)) * 32)
+    else:
+        width, patch = shape("visual.conv1.weight")[0],             shape("visual.conv1.weight")[-1]
+        grid = int(round((shape("visual.positional_embedding")[0] - 1)
+                         ** 0.5))
+        embed_dim = shape("text_projection")[1]
+        vision = VisionConfig(hidden=width,
+                              layers=count("visual.transformer.resblocks", 3),
+                              heads=width // 64, proj_dim=embed_dim,
+                              patch=patch, image_size=patch * grid)
+    return CLIPConfig(vision=vision, text=TextConfig(
+        hidden=t_width, layers=t_layers, heads=t_width // 64,
+        proj_dim=embed_dim, vocab=vocab, ctx=ctx))
+
+
+def _keystr_leaves(tree, path=""):
+    """(path, leaf) of every leaf, the path written as
+    `jax.tree_util.keystr` writes it: "['vision']['layer1'][0]['conv1']"."""
     if isinstance(tree, dict):
-        return {k: params_to_numpy(v) for k, v in tree.items()}
-    t = tree.detach().cpu()
-    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        for k, v in tree.items():
+            yield from _keystr_leaves(v, f"{path}[{k!r}]")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _keystr_leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def save_pytree(path: str, params) -> None:
+    """Cache the port's parameters as a flat .npz in the JAX package's
+    layout (`params_to_numpy`), under its keys."""
+    np.savez(path, **dict(_keystr_leaves(params_to_numpy(params))))
+
+
+def load_pytree(path: str):
+    """Inverse of save_pytree: the nested dict/list numpy tree, in the JAX
+    package's layout, from a keystr-flattened .npz (either package's)."""
+    root: dict = {}
+    with np.load(path) as flat:
+        for keystr, value in flat.items():
+            parts = [p.strip("'\"") for p in
+                     keystr.replace("]", "").split("[") if p]
+            node = root
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = value
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [listify(node[str(i)]) for i in range(len(node))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
+def load_checkpoint(path: str, cfg: CLIPConfig = None,
+                    param_dtype=np.float32):
+    """A local CLIP checkpoint: torch .pt/.bin (HF or OpenAI layout, told
+    apart by its keys), .safetensors, or a .npz cache of `save_pytree`.
+    Returns (numpy tree in the JAX package's layout, cfg); an OpenAI
+    checkpoint read without `cfg` gives its config from its shapes."""
+    path = str(path)
+    if path.endswith(".npz"):
+        if cfg is None:
+            raise ValueError(".npz pytree cache requires an explicit config")
+        return load_pytree(path), cfg
+    if path.endswith(".safetensors"):
+        from safetensors.numpy import load_file
+        sd = load_file(path)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=False)
+        if hasattr(sd, "state_dict"):
+            sd = sd.state_dict()
+        if "state_dict" in sd:
+            sd = sd["state_dict"]
+    if any(k.startswith("vision_model.") for k in sd):
+        if cfg is None:
+            raise ValueError("HF layout requires an explicit CLIPConfig")
+        return from_hf_state_dict(sd, cfg, param_dtype), cfg
+    cfg = cfg or infer_config_from_openai(sd)
+    return from_openai_state_dict(sd, cfg, param_dtype), cfg

@@ -1,15 +1,36 @@
-"""Architecture registry: the ViT rows of `ttl_tpu/models/zoo.py`.
+"""Architecture registry: the rows of `ttl_tpu/models/zoo.py`.
 
-The ResNet rows (RN50 ... RN50x64) are known names that raise
-NotImplementedError until their towers are ported (ROADMAP Queue 1, item 14).
+The ResNet rows (RN50 ... RN50x64, `models/resnet.py`) serve the prompt,
+text-LoRA, CoCoOp and zero-shot modes; image-LoRA adapts ViT towers only, as
+in the reference. The x4/x16/x64 scalings follow the published CLIP model
+zoo.
 """
 from __future__ import annotations
 
 from .clip import CLIPConfig, TextConfig, VisionConfig
-
-RESNET_ARCHS = ("RN50", "RN101", "RN50x4", "RN50x16", "RN50x64")
+from .resnet import RESNET_ARCHS
 
 ARCHS = {
+    "RN50": CLIPConfig(
+        vision=RESNET_ARCHS["RN50"],
+        text=TextConfig(hidden=512, layers=12, heads=8, proj_dim=1024),
+    ),
+    "RN101": CLIPConfig(
+        vision=RESNET_ARCHS["RN101"],
+        text=TextConfig(hidden=512, layers=12, heads=8, proj_dim=512),
+    ),
+    "RN50x4": CLIPConfig(
+        vision=RESNET_ARCHS["RN50x4"],
+        text=TextConfig(hidden=640, layers=12, heads=10, proj_dim=640),
+    ),
+    "RN50x16": CLIPConfig(
+        vision=RESNET_ARCHS["RN50x16"],
+        text=TextConfig(hidden=768, layers=12, heads=12, proj_dim=768),
+    ),
+    "RN50x64": CLIPConfig(
+        vision=RESNET_ARCHS["RN50x64"],
+        text=TextConfig(hidden=1024, layers=12, heads=16, proj_dim=1024),
+    ),
     "ViT-B/16": CLIPConfig(
         vision=VisionConfig(hidden=768, layers=12, heads=12, proj_dim=512,
                             patch=16, image_size=224),
@@ -44,10 +65,6 @@ ARCHS["test-tiny"] = TEST_TINY
 
 
 def get_arch(name: str) -> CLIPConfig:
-    if name in RESNET_ARCHS:
-        raise NotImplementedError(
-            f"arch {name!r}: the ResNet towers are not ported yet "
-            "(ROADMAP Queue 1, item 14)")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
     return ARCHS[name]

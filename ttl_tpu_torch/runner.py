@@ -7,7 +7,9 @@ tuning (`--lora_encoder prompt`), CoCoOp (`--cocoop`) and zero-shot
 (`--tta_steps 0`), with the single-template or the ensemble (`--ensemble`)
 classifier, an optional int8 frozen prefix (`--prefix_quant int8`), PLPD's
 filter (`--filter_plpd 1`), AugMix views (`--aug_list`) and an optional
-CoOp/CoCoOp prompt checkpoint (`--load`). Per dataset it builds
+CoOp/CoCoOp prompt checkpoint (`--load`), on the ViT towers and, in every
+mode but image-LoRA, on the ResNet towers; with the CLIP weights of
+`--checkpoint_path` or random ones. Per dataset it builds
 the text side once (the frozen classifier, the class-prompt token table,
 the prompt learner or the CoCoOp state), streams samples through
 `SampleLoader`, and runs one fused step per batch of `sample_batch` samples:
@@ -46,8 +48,10 @@ from .config import TTLConfig, resolve_layer_range
 from .data.classnames import resolve_classnames
 from .data.registry import build_dataset, dataset_exists, expected_subdir
 from .data.views import DEFAULT_CANVAS, SampleLoader
-from .models.clip import (init_clip_params, l2_normalize, lora_compute_mode,
-                          ln_stats_mode, text_features_from_embeddings)
+from .models.clip import (VisionConfig, init_clip_params, l2_normalize,
+                          lora_compute_mode, ln_stats_mode,
+                          text_features_from_embeddings)
+from .models.convert import load_checkpoint, params_from_numpy
 from .models.prompts import (build_ensemble_classifier, build_text_classifier,
                              init_prompt_learner, prompt_tokens)
 from .models.zoo import get_arch
@@ -62,10 +66,13 @@ from .utils.meters import AverageMeter, ProgressMeter, Summary
 
 
 def load_model(cfg: TTLConfig, device):
-    """(clip_cfg, params) with random weights drawn from cfg.seed: no CLIP
-    checkpoint can be loaded yet (ROADMAP Queue 1, item 14). With
-    `--prefix_quant int8` the frozen vision layers get an int8 copy, and the
-    fp layer stack is dropped where the whole tower is quantised."""
+    """(clip_cfg, params): the CLIP weights of `--checkpoint_path` (HF or
+    OpenAI .pt/.bin, .safetensors, or a .npz cache of `save_pytree`), read
+    with the arch's config, leaves with two or more axes in param_dtype and
+    the rest f32, as the JAX runner loads them; without a checkpoint, random
+    weights drawn from cfg.seed. With `--prefix_quant int8` the frozen
+    vision layers get an int8 copy, and the fp layer stack is dropped where
+    the whole tower is quantised."""
     check_supported(cfg)
     if cfg.prefix_quant not in ("none", "int8"):
         raise ValueError(f"prefix_quant={cfg.prefix_quant!r}: expected "
@@ -73,21 +80,31 @@ def load_model(cfg: TTLConfig, device):
     clip_cfg = get_arch(cfg.arch)
     pdtype = (torch.bfloat16 if cfg.param_dtype == "bfloat16"
               else torch.float32)
-    print("WARNING: no --checkpoint_path; using random-init CLIP weights "
-          "(accuracy will be chance level)", flush=True)
-    params = init_clip_params(clip_cfg, torch.Generator().manual_seed(
-        cfg.seed), device=device, param_dtype=pdtype)
+    if cfg.checkpoint_path:
+        tree, clip_cfg = load_checkpoint(cfg.checkpoint_path, clip_cfg)
+        params = params_from_numpy(tree, device, pdtype)
+    else:
+        print("WARNING: no --checkpoint_path; using random-init CLIP weights "
+              "(accuracy will be chance level)", flush=True)
+        params = init_clip_params(clip_cfg, torch.Generator().manual_seed(
+            cfg.seed), device=device, param_dtype=pdtype)
     if cfg.prefix_quant == "int8":
         params = attach_prefix_quant(params, quant_prefix_len(cfg, clip_cfg),
                                      drop_fp=True)
     return clip_cfg, params
 
 
-def make_adapters0(cfg: TTLConfig, clip_cfg, device) -> dict:
+def make_adapters0(cfg: TTLConfig, clip_cfg, device) -> Optional[dict]:
     """Fresh adapters for the window of the adapted tower: the vision
-    tower's width with `--lora_encoder image`, else the text tower's."""
+    tower's width with `--lora_encoder image`, else the text tower's. None
+    for `--lora_encoder image` on a ResNet tower, which has no q/v to adapt
+    (zero-shot and CoCoOp run there; `evaluate_dataset` refuses image-LoRA
+    adaptation)."""
+    image = cfg.lora_encoder == "image"
+    if image and not isinstance(clip_cfg.vision, VisionConfig):
+        return None
     lo, hi = resolve_layer_range(cfg, clip_cfg)
-    tower = clip_cfg.vision if cfg.lora_encoder == "image" else clip_cfg.text
+    tower = clip_cfg.vision if image else clip_cfg.text
     return init_adapters(torch.Generator().manual_seed(cfg.seed),
                          hi - lo + 1, tower.hidden, cfg.rank,
                          cfg.init_method, device=device)
@@ -223,6 +240,13 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
             f"(lora_encoder={cfg.lora_encoder!r}, cocoop={cfg.cocoop}) "
             "builds its prompts elsewhere and would silently ignore the "
             "ensemble table")
+    if cfg.tta_steps > 0 and cfg.lora_encoder == "image" \
+            and not cfg.cocoop \
+            and not isinstance(clip_cfg.vision, VisionConfig):
+        raise ValueError(
+            f"arch {cfg.arch!r} has a ResNet vision tower; image-encoder "
+            "LoRA adaptation requires a ViT backbone (as in the reference). "
+            "Use --lora_encoder prompt|text or --tta_steps 0.")
     device = torch.device(device)
     if dataset is None:
         dataset = build_dataset(set_id, cfg)
