@@ -114,7 +114,32 @@ per source, side by side), then:
    K4 48/12; ViT-B/16's main path: K1 15, K2 3); three loaded leaves must
    equal the file's tensors after the layout change; the loaded params are
    saved with `models.convert.save_pytree`, and one batch from that `.npz`
-   must give the same bits as from the file.
+   must give the same bits as from the file;
+27. batch prediction as a user runs it, `python -m ttl_tpu_torch.predict
+   DIR --test_sets I --topk 1000` through its `main`, over 24 images of
+   mixed sizes (JPEG and PNG) written into a temporary directory under the
+   build directory: one JSON line an image, its label its top class, the
+   1000 probabilities finite and summing to 1; 18 K1 (the main path's 15
+   and 3 for the zero-shot aux pass) and 3 K2 launches per batch; at
+   `--tta_steps 0` 12 K1 and every label the zero-shot one; with
+   `--prefix_quant int8` 54 K5 more; then 80 images timed as phase 4 (at
+   the default `--topk 5` and at 1000) and one batch under torch.profiler;
+28. card against CPU for one sample through `serve.TTLPredictor`'s fused
+   step (`zero_shot_aux=True`), phase 5's sample: the adapted logits at
+   top-1, the first update's gradient within GRAD_BOUND_REL["main path"],
+   and the aux pass's zero-shot logits within CARD_CPU_BOUND;
+29. the HTTP server as users start it, `python -m ttl_tpu_torch.serve
+   --test_sets I --sample_batch 4 --max_queue 64 --port P`, in a process of
+   its own: the seconds to its READY line and to the first answer; 16 JPEG
+   POSTs and one malformed body at once (16 x 200, 1 x 400, /metrics
+   counting them, none shed); one image alone and inside the burst with the
+   same answer; SIGTERM, and the server drains and exits 0;
+30. `--test_sets bongard` through `runner.run` over 4 synthetic episodes
+   (6 + 6 support images and 2 queries each, written under the build
+   directory): adapted, 12 K1 an episode for the support encoder and 15 K1
+   / 3 K2 for the queries' step, twice with the same bits; zero-shot, 24
+   K1 an episode; `-a RN50 --tta_steps 0`, no launch; then the adapted
+   protocol timed and profiled.
 
 Every kernel's line also carries `bound_ms`, the least time the card could
 take for the call (the larger of its bytes over 3.35 TB/s and its operations
@@ -758,6 +783,23 @@ def config(*flags):
         ["synthetic", "--test_sets", "A", "--seed", str(SEED), *flags]))
 
 
+def profiled(fn, *args):
+    """fn(*args) under torch.profiler, waited for: (its result, the device
+    busy ms, the table of the top CUDA kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = fn(*args)
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    # device events only: a CPU op's device time repeats its kernels'
+    busy_ms = sum(e.self_device_time_total for e in avg
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    return res, busy_ms, avg.table(sort_by="self_cuda_time_total",
+                                   row_limit=15, max_name_column_width=60)
+
+
 class StepProbe:
     """Stands in for the runner's step factory (make_fused_ttl_fn,
     make_fused_tpt_fn, make_fused_cocoop_fn or make_fused_zeroshot_fn). It wraps the step, records
@@ -790,18 +832,7 @@ class StepProbe:
         return step
 
     def _profiled(self, step_fn, args):
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            res = step_fn(*args)
-            torch.cuda.synchronize()
-        avg = prof.key_averages()
-        # device events only: a CPU op's device time repeats its kernels'
-        self.busy_ms = sum(e.self_device_time_total for e in avg
-                           if e.device_type == DeviceType.CUDA) / 1e3
-        self.table = avg.table(sort_by="self_cuda_time_total", row_limit=15,
-                               max_name_column_width=60)
+        res, self.busy_ms, self.table = profiled(step_fn, *args)
         return res
 
     def check(self, sample_batch: int, n_classes: int) -> None:
@@ -1540,6 +1571,421 @@ def phase_checkpoints(fa, tq, build_dir) -> dict:
     return out
 
 
+# ------------------------------------------------ the product surfaces
+
+# predict's flags in phase 27: set I's 1000 classes, and every class in
+# each line's `topk`, so that its probabilities sum to 1
+PREDICT_FLAGS = ("--test_sets", "I", "--topk", "1000")
+# predict's probabilities are rounded to 6 places: the error of a sum of
+# 1000 of them has a standard deviation of 9.1e-6 (uniform errors within
+# 5e-7), so 1e-4 holds it at 11 deviations
+PROB_SUM_BOUND = 1e-4
+
+
+def write_images(directory: str, n: int, seed: int, hue=None) -> list:
+    """`n` images of uniform noise at SyntheticImages' sizes into
+    `directory`, JPEG and PNG in turn; with `hue`, that channel raised to at
+    least 160. Returns their paths."""
+    from PIL import Image
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        size = SyntheticImages.SIZES[i % len(SyntheticImages.SIZES)]
+        img = rng.integers(0, 256, size + (3,), dtype=np.uint8)
+        if hue is not None:
+            img[..., hue] = np.maximum(img[..., hue], 160)
+        paths.append(os.path.join(directory,
+                                  f"{i:03d}.{('jpg', 'png')[i % 2]}"))
+        Image.fromarray(img).save(paths[-1])
+    return paths
+
+
+def run_predict(fa, tq, name: str, images: str, flags: tuple,
+                per_batch: dict, profile: bool = False):
+    """`python -m ttl_tpu_torch.predict IMAGES --test_sets I --topk 1000
+    --out FILE *flags` through its `main`, with a StepProbe in the place of
+    its step factory; the launches per batch checked against `per_batch`
+    (every kernel it does not name: none). Returns (the JSON lines, the
+    launches, the probe, the seconds of the call)."""
+    from ttl_tpu_torch import predict
+    from ttl_tpu_torch.adapt import ttl
+    attr = ("make_fused_zeroshot_fn" if "--tta_steps" in flags
+            else "make_fused_ttl_fn")
+    original = getattr(ttl, attr)
+    probe = StepProbe(original, profile=profile)
+    out = images + ".jsonl"
+    reset_counts(fa, tq)
+    setattr(ttl, attr, probe)
+    start = time.perf_counter()
+    try:
+        predict.main([images, *PREDICT_FLAGS, "--out", out, *flags])
+    finally:
+        setattr(ttl, attr, original)
+    seconds = time.perf_counter() - start
+    counts = launch_counts(fa, tq)
+    with open(out) as f:
+        lines = [json.loads(line) for line in f]
+    n_batches = len(probe.starts)
+    expect = {k: v * n_batches
+              for k, v in {**dict.fromkeys(counts, 0), **per_batch}.items()}
+    log(f"{name}: {len(lines)} lines, {n_batches} batches, launches "
+        f"{counts}, whole call {seconds:.1f} s")
+    if counts != expect:
+        raise AssertionError(f"{name}: expected {per_batch} launches per "
+                             f"batch, got {counts} over {n_batches} batches")
+    return lines, counts, probe, seconds
+
+
+def check_predictions(name: str, lines: list, n_images: int, classes: list,
+                      topk: int) -> None:
+    """predict's JSON lines: one per image, each label its top class, `topk`
+    probabilities, finite and descending, summing to 1 within
+    PROB_SUM_BOUND where they are every class's, else to no more."""
+    if len(lines) != n_images:
+        raise AssertionError(f"{name}: {len(lines)} lines for {n_images} "
+                             "images")
+    for r in lines:
+        probs = np.array([t["prob"] for t in r["topk"]])
+        gap = probs.sum() - 1.0
+        if (r["label"] != r["topk"][0]["label"]
+                or r["zero_shot_label"] not in classes
+                or len(probs) != topk
+                or not np.isfinite(probs).all()
+                or (np.diff(probs) > 0).any()
+                or gap > PROB_SUM_BOUND
+                or (topk == len(classes) and gap < -PROB_SUM_BOUND)):
+            raise AssertionError(f"{name}: a malformed line for "
+                                 f"{r['path']}")
+
+
+def phase_predict(fa, tq, build_dir) -> dict:
+    """Batch prediction at full width through `predict.main`: 24 images of
+    mixed sizes (JPEG and PNG) over set I's 1000 classes, adapted (the main
+    path and the zero-shot aux pass: 18 K1 and 3 K2 a batch), at
+    `--tta_steps 0` (12 K1) and with `--prefix_quant int8` (54 K5 more);
+    then 80 images timed in steady state as phase 4 times the main path,
+    (at the default `--topk 5` and with every class written), and one batch
+    under torch.profiler. Returns each run's launches, and the adapted
+    run's rate at `--topk 5`."""
+    import tempfile
+    from ttl_tpu_torch.data.classnames import resolve_classnames
+    from ttl_tpu_torch.predict import IN_FLIGHT
+    classes = list(resolve_classnames("I"))
+    adapted = {"K1": 18, "K2": 3}
+    runs = {"predict": ((), adapted),
+            "predict, --tta_steps 0": (("--tta_steps", "0"), {"K1": 12}),
+            "predict, int8 prefix": (("--prefix_quant", "int8"),
+                                     {**adapted, "K5": 54})}
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        images = os.path.join(tmp, "images")
+        write_images(images, 24, SEED + 41)
+        for name, (flags, per_batch) in runs.items():
+            lines, counts, probe, _ = run_predict(fa, tq, name, images, flags,
+                                                  per_batch)
+            check_predictions(name, lines, 24, classes, len(classes))
+            probe.check(8, len(classes))
+            if "--tta_steps" in flags and any(
+                    r["label"] != r["zero_shot_label"] for r in lines):
+                raise AssertionError(f"{name}: a label differs from the "
+                                     "zero-shot label")
+            changed = sum(r["label"] != r["zero_shot_label"] for r in lines)
+            log(f"{name}: every line checked; the adapted label differs "
+                f"from the zero-shot label on {changed} of 24 images")
+            out[name] = {"launches": counts}
+
+        # timed at the default --topk 5, then with every class written
+        timed = os.path.join(tmp, "timed")
+        write_images(timed, 80, SEED + 42)
+        for topk in (5, len(classes)):
+            name = f"predict, 80 images, --topk {topk}"
+            torch.cuda.reset_peak_memory_stats()
+            lines, _, timing, seconds = run_predict(
+                fa, tq, name, timed, ("--topk", str(topk)), adapted)
+            check_predictions(name, lines, 80, classes, topk)
+            pace = np.diff(timing.starts[IN_FLIGHT + 1:])
+            log(f"{name}, steady state: {len(pace)} batches of 8 images, "
+                f"s/batch {pace.tolist()}, median {np.median(pace):.4f} s, "
+                f"images/s {8 / np.median(pace):.3f} (in flight "
+                f"{IN_FLIGHT}), the whole call {80 / seconds:.3f} images/s "
+                f"with the set-up, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+            if topk == 5:
+                rate = 8 / np.median(pace)
+                step_s = np.median(pace)
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        one = os.path.join(tmp, "one")
+        write_images(one, 8, SEED + 43)
+        _, _, prof, _ = run_predict(fa, tq, "predict, one batch profiled",
+                                    one, (), adapted, profile=True)
+        busy_s = prof.busy_ms / 1e3
+        log(f"predict, one batch under torch.profiler: device busy "
+            f"{busy_s:.4f} s, {100 * busy_s / step_s:.1f}% of the steady "
+            f"s/batch at --topk 5; top CUDA kernels:\n{prof.table}")
+    out["predict"].update(samples_per_s=rate, peak_gb=peak_gb,
+                          busy_ms=prof.busy_ms, busy_share=busy_s / step_s)
+    return out
+
+
+def phase_predictor_card_vs_cpu() -> None:
+    """`TTLPredictor`'s fused step (`make_fused_ttl_fn(...,
+    zero_shot_aux=True)`) for phase 5's sample over set A, on the card and
+    on the CPU (plain versions), same weights and draws: the adapted logits
+    at top-1 and the first update's gradient within
+    GRAD_BOUND_REL["main path"] (`expect_adapted`), the zero-shot logits of
+    the aux pass within CARD_CPU_BOUND."""
+    from ttl_tpu_torch import runner
+    from ttl_tpu_torch.data.classnames import resolve_classnames
+    from ttl_tpu_torch.models.clip import tree_map
+    from ttl_tpu_torch.serve import TTLPredictor
+    cfg = config()
+    pred = TTLPredictor(resolve_classnames("A"), cfg,
+                        device=torch.device("cuda"), warmup=False)
+    host = sample_canvas(SEED + 1)
+    draws = runner.sample_draws(cfg, [3])
+
+    def run_on(device):
+        def put(t):
+            return t.to(device)
+        with first_update_gradient() as grads:
+            res = pred.step_fn(tree_map(put, pred.params),
+                               put(pred.text_cls),
+                               tree_map(put, pred.adapters0),
+                               put(host["canvases"]), put(host["hs"]),
+                               put(host["ws"]), tree_map(put, draws))
+        return (Sample(res.logits[0].float().cpu(), grads[0]),
+                res.zero_shot_logits[0].float().cpu())
+
+    card, card_zs = run_on(torch.device("cuda"))
+    start = time.perf_counter()
+    cpu, cpu_zs = run_on(torch.device("cpu"))
+    cpu_s = time.perf_counter() - start
+    name = "TTLPredictor's step with the zero-shot aux pass"
+    expect_adapted(name, card, cpu, GRAD_BOUND_REL["main path"], cpu_s)
+    expect_close(f"{name}, zero_shot_logits", card_zs, cpu_zs,
+                 CARD_CPU_BOUND, cpu_s)
+
+
+def http(port: int, path: str, body: Optional[bytes] = None,
+         timeout: float = 300):
+    """One request to the local server: (status, its JSON body or None)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, None
+
+
+def jpeg(img: np.ndarray) -> bytes:
+    import io
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG")
+    return buf.getvalue()
+
+
+def phase_serve() -> dict:
+    """`python -m ttl_tpu_torch.serve --test_sets I --sample_batch 4
+    --max_queue 64 --port P` as a user starts it, in a process of its own
+    on the card: the seconds from its start to its READY line ("serving
+    on") and from the first POST to its answer; then 16 JPEG POSTs and one
+    malformed body at once (16 x 200 with labels of set I and 1 x 400,
+    /metrics counting 16 more served, 1 more failed, 4 to 16 more batches
+    and none shed); the first image, posted alone and again inside the
+    burst, gets the same label and probabilities; then SIGTERM: the server
+    drains and exits 0."""
+    import signal
+    import socket
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from ttl_tpu_torch.data.classnames import resolve_classnames
+    from ttl_tpu_torch.ops import _build
+    classes = set(resolve_classnames("I"))
+    built = _build.library_path().exists()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "ttl_tpu_torch.serve", "--test_sets", "I",
+           "--sample_batch", "4", "--max_queue", "64", "--port", str(port)]
+    output, ready_at, ready = [], [], threading.Event()
+    start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+    def read():
+        for line in proc.stdout:
+            output.append(line.rstrip())
+            if "serving on" in line:
+                ready_at.append(time.perf_counter())
+                ready.set()
+        ready.set()   # the process ended
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        ready.wait(600)
+        if not ready_at:
+            raise AssertionError("the server did not come up:\n"
+                                 + "\n".join(output[-40:]))
+        ready_s = ready_at[0] - start
+        rng = np.random.default_rng(SEED + 51)
+        bodies = [jpeg(rng.integers(0, 256, SyntheticImages.SIZES[i % 4]
+                                    + (3,), dtype=np.uint8))
+                  for i in range(16)]
+        t0 = time.perf_counter()
+        code, alone = http(port, "/predict", bodies[0])
+        first_s = time.perf_counter() - t0
+        if code != 200 or alone["label"] not in classes:
+            raise AssertionError(f"the first POST answered {code}")
+        before = http(port, "/metrics")[1]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=17) as ex:
+            results = list(ex.map(lambda b: http(port, "/predict", b),
+                                  bodies + [b"not an image"]))
+        burst_s = time.perf_counter() - t0
+        after = http(port, "/metrics")[1]
+        codes = [c for c, _ in results]
+        if codes != [200] * 16 + [400] or any(
+                r["label"] not in classes for _, r in results[:16]):
+            raise AssertionError(f"the burst answered {codes}")
+        more = {k: after[k] - before[k]
+                for k in ("served_total", "failed_total", "batches_total",
+                          "shed_total")}
+        log(f"serve: the burst of 17 answered in {burst_s:.3f} s; /metrics "
+            f"after it {after}; the burst's share {more}")
+        if (more["served_total"], more["failed_total"],
+                more["shed_total"]) != (16, 1, 0) \
+                or not 4 <= more["batches_total"] <= 16:
+            raise AssertionError(f"serve: /metrics counted {more}")
+        in_burst = results[0][1]
+        if (in_burst["label"], in_burst["topk"], in_burst["zero_shot_label"]) \
+                != (alone["label"], alone["topk"], alone["zero_shot_label"]):
+            raise AssertionError("serve: the same image answered otherwise "
+                                 "inside the burst")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        reader.join(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"serve, stopped with SIGTERM: exit code {rc}; its last lines: "
+        + " | ".join(output[-3:]))
+    if rc != 0 or not any("draining" in line for line in output):
+        raise AssertionError(f"serve did not drain and exit 0 (exit code "
+                             f"{rc})")
+    log(f"serve cold start (kernel library {'already built' if built else 'built by the server'}): "
+        f"{ready_s:.3f} s from the process's start to its READY line, "
+        f"{first_s:.3f} s from the first POST to its answer; the same image "
+        f"alone and inside the burst: the same label and probabilities")
+    return {"ready_s": ready_s, "first_response_s": first_s,
+            "burst_s": burst_s}
+
+
+def write_bongard(root: str, n_episodes: int, seed: int):
+    """`n_episodes` Bongard episodes of 7 positive (red raised) and 7
+    negative (blue raised) images each, and their split file, under `root`
+    (tests/test_bongard_eval.py's layout): the dataset."""
+    from ttl_tpu_torch.data.bongard import BongardDataset
+    tasks = []
+    for t in range(n_episodes):
+        pos, neg = (write_images(os.path.join(root, f"t{t}", name), 7,
+                                 seed + 2 * t + k, hue=hue)
+                    for k, (name, hue) in enumerate((("pos", 0),
+                                                     ("neg", 2))))
+        tasks.append([[{"im_path": os.path.relpath(p, root)} for p in neg],
+                      [{"im_path": os.path.relpath(p, root)} for p in pos],
+                      "hold++cup"])
+    with open(os.path.join(
+            root, "bongard_hoi_test_unseen_obj_unseen_act.json"), "w") as f:
+        json.dump(tasks, f)
+    return BongardDataset(root, splits_dir=root)
+
+
+def phase_bongard(fa, tq, build_dir) -> dict:
+    """`--test_sets bongard` through `runner.run` at ViT-B/16 over 4
+    synthetic episodes (6 + 6 support images and 2 queries each): adapted,
+    12 K1 an episode for the support encoder and 15 K1 / 3 K2 for the
+    queries' step, twice, with the same query logits' bits; zero-shot, 24
+    K1 an episode; `-a RN50 --tta_steps 0`, no kernel launch. Then the
+    adapted protocol timed (`adapt.bongard.evaluate_bongard` on the loaded
+    model) and profiled. Returns each run's launches and the timing."""
+    import tempfile
+    from ttl_tpu_torch import runner
+    from ttl_tpu_torch.adapt import bongard
+    runs = {"Bongard": ((), {"K1": 27, "K2": 3}),
+            "Bongard, again": ((), {"K1": 27, "K2": 3}),
+            "Bongard zero-shot": (("--tta_steps", "0"), {"K1": 24}),
+            "Bongard, RN50 zero-shot": (("-a", "RN50", "--tta_steps", "0"),
+                                        {})}
+    n_ep = 4
+    out, logits = {}, {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        ds = write_bongard(tmp, n_ep, SEED + 61)
+        for name, (flags, per_episode) in runs.items():
+            cfg = config("--test_sets", "bongard", *flags)
+            probe = StepProbe(bongard.make_bongard_step_fn)
+            bongard.make_bongard_step_fn = probe
+            reset_counts(fa, tq)
+            start = time.perf_counter()
+            try:
+                res = runner.run(cfg, device=torch.device("cuda"),
+                                 datasets={"bongard": ds})["bongard"]
+            finally:
+                bongard.make_bongard_step_fn = probe.make_step
+            counts = launch_counts(fa, tq)
+            expect = {k: v * n_ep for k, v in {**dict.fromkeys(counts, 0),
+                                               **per_episode}.items()}
+            log(f"{name}: accuracy {res}, launches {counts} over {n_ep} "
+                f"episodes, whole run {time.perf_counter() - start:.1f} s")
+            if counts != expect or not 0.0 <= res[0] <= 100.0 \
+                    or res[1] != 100.0:
+                raise AssertionError(f"{name}: expected {per_episode} "
+                                     f"launches an episode, got {counts}")
+            out[name] = {"launches": counts, "accuracy": res}
+            logits[name] = probe.logits
+        same = all(torch.equal(a, b) for a, b in zip(logits["Bongard"],
+                                                     logits["Bongard, again"]))
+        if out["Bongard"]["accuracy"] != out["Bongard, again"]["accuracy"] \
+                or len(logits["Bongard"]) != n_ep or not same:
+            raise AssertionError("Bongard: two adapted runs differ")
+        log("Bongard: two adapted runs gave the same accuracy and the same "
+            "bits in every episode's query logits")
+
+        cfg = config("--test_sets", "bongard")
+        clip_cfg, params = runner.load_model(cfg, torch.device("cuda"))
+        adapters0 = runner.make_adapters0(cfg, clip_cfg, torch.device("cuda"))
+
+        def evaluate():
+            return bongard.evaluate_bongard(cfg, ds, clip_cfg, params,
+                                            adapters0, device="cuda")
+
+        evaluate()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        evaluate()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        _, busy_ms, table = profiled(evaluate)
+    n_images = n_ep * 14
+    log(f"Bongard, adapted: {n_ep} episodes in {wall:.4f} s, "
+        f"{n_ep / wall:.3f} episodes/s, {n_images / wall:.3f} images/s "
+        f"(support and queries, decoding included); one pass under "
+        f"torch.profiler: device busy {busy_ms / 1e3:.4f} s, "
+        f"{100 * busy_ms / 1e3 / wall:.1f}% of the unprofiled pass; top CUDA "
+        f"kernels:\n{table}")
+    out["Bongard"].update(episodes_per_s=n_ep / wall,
+                          images_per_s=n_images / wall, busy_ms=busy_ms,
+                          busy_share=busy_ms / 1e3 / wall)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1624,12 +2070,29 @@ def main() -> int:
     augmix_path = phase_augmix(fa, tq)
     rn50_tpt, rn50_zero_shot = phase_resnet(fa, tq)
     checkpoints = phase_checkpoints(fa, tq, lib.parent)
+    seconds = {}
+    for phase, run in ((27, lambda: phase_predict(fa, tq, lib.parent)),
+                       (28, phase_predictor_card_vs_cpu),
+                       (29, phase_serve),
+                       (30, lambda: phase_bongard(fa, tq, lib.parent))):
+        start = time.perf_counter()
+        seconds[phase] = (run(), time.perf_counter() - start)
+        log(f"phase {phase} took {seconds[phase][1]:.1f} s")
+    predict_runs, served, bongard_runs = (seconds[p][0] for p in (27, 29, 30))
+    log(f"new paths: predict {predict_runs['predict']['samples_per_s']:.3f} "
+        f"images/s at {100 * predict_runs['predict']['busy_share']:.1f}% "
+        f"busy; serve ready in {served['ready_s']:.3f} s, first answer in "
+        f"{served['first_response_s']:.3f} s; Bongard adapted "
+        f"{bongard_runs['Bongard']['images_per_s']:.3f} images/s at "
+        f"{100 * bongard_runs['Bongard']['busy_share']:.1f}% busy; phases "
+        f"27-30 took {sum(t for _, t in seconds.values()):.1f} s")
     paths = {"main path": main_path, "int8 main path": int8_path,
              "zero-shot": zero_shot, "text-LoRA (per_head)": text_path,
              "prompt tuning (heads)": prompt_path, "CoCoOp": cocoop_path,
              "PLPD": plpd_path, "AugMix": augmix_path,
              "RN50 prompt tuning (heads)": rn50_tpt,
-             "RN50 zero-shot": rn50_zero_shot}
+             "RN50 zero-shot": rn50_zero_shot,
+             "predict": predict_runs.pop("predict")}
     log("steady samples/s, device busy share, device ms per batch, peak "
         "device memory: "
         + "; ".join(f"{name} {r['samples_per_s']:.3f}, "
@@ -1639,6 +2102,8 @@ def main() -> int:
     paths["TPT on LoRA"] = tpt_lora
     paths["PLPD, int8 prefix"] = plpd_int8
     paths.update(checkpoints)
+    paths.update(predict_runs)
+    paths.update(bongard_runs)
 
     def by_path(key):
         return {name: r["launches"][key] for name, r in paths.items()}

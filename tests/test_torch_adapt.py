@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_threads  # noqa: F401  (torch threads per worker)
 from ttl_tpu.adapt.ttl import make_batched_ttl_fn as j_make_batched
 from ttl_tpu.config import TTLConfig
 from ttl_tpu.models.clip import init_clip_params

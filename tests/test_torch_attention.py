@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_threads  # noqa: F401  (torch threads per worker)
 from ttl_tpu.ops import attention as jfa
 from ttl_tpu_torch.ops import _build
 from ttl_tpu_torch.ops import attention as tfa

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_threads  # noqa: F401  (torch threads per worker)
 from ttl_tpu.adapt import cocoop as jco
 from ttl_tpu.adapt import ttl as jttl
 from ttl_tpu.config import TTLConfig as JTTLConfig

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_threads  # noqa: F401  (torch threads per worker)
 from ttl_tpu import runner as jrunner
 from ttl_tpu.config import TTLConfig as JTTLConfig
 from ttl_tpu.models import clip as jclip

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_threads  # noqa: F401  (torch threads per worker)
 from ttl_tpu.models import clip as jclip
 from ttl_tpu.models import prompts as jprompts
 from ttl_tpu.models.zoo import TEST_TINY as J_TINY

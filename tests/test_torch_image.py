@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_threads  # noqa: F401  (torch threads per worker)
 from ttl_tpu.ops.image import make_view_fn, preprocess_center
 from ttl_tpu_torch.ops import image as timg
 

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_threads  # noqa: F401  (torch threads per worker)
 from ttl_tpu.models import clip as jclip
 from ttl_tpu.models.zoo import TEST_TINY as J_TINY
 from ttl_tpu.ops import attention as jfa

@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import test_torch_threads  # noqa: F401  (torch threads per worker)
 from test_torch_image import jax_draws, stack_draws
 
 import ttl_tpu.parallel.eval as jeval

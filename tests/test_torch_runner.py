@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_threads  # noqa: F401  (torch threads per worker)
 from ttl_tpu_torch import runner as trunner
 from ttl_tpu_torch.config import TTLConfig
 from ttl_tpu_torch.data.classnames import resolve_classnames

@@ -15,8 +15,10 @@
   raises on flags it does not cover yet (`--filter_plpd` and `--aug_list`
   are covered now: tests/test_torch_plpd.py, tests/test_torch_augmix.py;
   the ResNet archs and `--checkpoint_path`: tests/test_torch_resnet.py,
-  tests/test_torch_checkpoint.py). Image-LoRA on a ResNet arch raises the
-  JAX package's ValueError; a missing checkpoint, FileNotFoundError.
+  tests/test_torch_checkpoint.py; the bongard set:
+  tests/test_torch_bongard.py, and here one run from the parsed flags).
+  Image-LoRA on a ResNet arch raises the JAX package's ValueError; a
+  missing checkpoint, FileNotFoundError.
 """
 import dataclasses
 import json
@@ -28,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import test_torch_threads
 from test_torch_image import jax_draws, stack_draws
 
 from ttl_tpu.adapt.ttl import make_fused_ttl_fn as j_make_fused
@@ -172,7 +175,8 @@ def test_runtime_imports_no_jax():
             "assert 'jax' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith('jax'))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=120)
+                          text=True, timeout=120,
+                          env=test_torch_threads.subprocess_env())
     assert proc.returncode == 0, proc.stderr
 
 
@@ -184,13 +188,40 @@ def test_cli_refuses_to_run_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh_shape", "2"],
-    ["--test_sets", "bongard"],
 ])
 def test_uncovered_flags_raise(flags):
     args = tcli.build_parser().parse_args(["data", *flags])
     cfg = tcli.config_from_args(args)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trunner.run(cfg, device="cpu", datasets={})
+
+
+def test_cli_parsed_bongard_set_runs(tmp_path, capsys):
+    """`--test_sets bongard` (tests/test_torch_bongard.py holds it against
+    the JAX package): one episode of six support images a polarity and a
+    query each, through `runner.run` from the parsed flags."""
+    from PIL import Image
+    from ttl_tpu_torch.data.bongard import BongardDataset
+    rng = np.random.default_rng(0)
+    task = [[], [], "hold++cup"]
+    for polarity, hue in ((0, 2), (1, 0)):   # neg, pos
+        for i in range(7):
+            img = rng.integers(0, 80, (40 + 4 * i, 48, 3), dtype=np.uint8)
+            img[..., hue] += 160
+            Image.fromarray(img).save(tmp_path / f"{polarity}_{i}.png")
+            task[polarity].append({"im_path": f"./{polarity}_{i}.png"})
+    (tmp_path / "bongard_hoi_test_unseen_obj_unseen_act.json").write_text(
+        json.dumps([task]))
+    args = tcli.build_parser().parse_args([
+        str(tmp_path), "--test_sets", "bongard", "-a", "test-tiny",
+        "--resolution", "64", "-b", "8", "--layer_range", "2,3", "--rank",
+        "4", "--compute_dtype", "float32", "--param_dtype", "float32"])
+    cfg = tcli.config_from_args(args)
+    ds = BongardDataset(cfg.data, splits_dir=str(tmp_path))
+    acc, top5 = trunner.run(cfg, device="cpu",
+                            datasets={"bongard": ds})["bongard"]
+    assert acc in (0.0, 50.0, 100.0) and top5 == 100.0
+    assert "=> Acc. on testset [bongard]" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("arch", ["RN50", "RN101"])

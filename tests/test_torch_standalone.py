@@ -11,8 +11,10 @@ import textwrap
 import numpy as np
 import pytest
 
+import test_torch_threads
 from ttl_tpu import cli as jcli
 from ttl_tpu import config as jconfig
+from ttl_tpu.data import bongard as jbongard
 from ttl_tpu.data import classnames as jclassnames
 from ttl_tpu.data import registry as jregistry
 from ttl_tpu.models import prompts as jprompts
@@ -20,6 +22,7 @@ from ttl_tpu.tokenizer import bpe as jbpe
 from ttl_tpu.utils import meters as jmeters
 from ttl_tpu_torch import cli as tcli
 from ttl_tpu_torch import config as tconfig
+from ttl_tpu_torch.data import bongard as tbongard
 from ttl_tpu_torch.data import classnames as tclassnames
 from ttl_tpu_torch.data import registry as tregistry
 from ttl_tpu_torch.models import prompts as tprompts
@@ -35,6 +38,8 @@ import ttl_tpu_torch.models.prompts, ttl_tpu_torch.ops.quant
 import ttl_tpu_torch.adapt.cocoop, ttl_tpu_torch.ops.ln_matmul
 import ttl_tpu_torch.utils.checkpoint, ttl_tpu_torch.models.convert
 import ttl_tpu_torch.models.resnet
+import ttl_tpu_torch.predict, ttl_tpu_torch.serve
+import ttl_tpu_torch.adapt.bongard, ttl_tpu_torch.data.bongard
 from ttl_tpu_torch.config import TTLConfig
 from ttl_tpu_torch.data.views import ArrayDataset
 from ttl_tpu_torch.models.clip import CLIPConfig
@@ -74,13 +79,17 @@ assert 0.0 <= top1 <= top5 <= 100.0
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "ttl_tpu"))
 assert not foreign, foreign
+assert {"ttl_tpu_torch.predict", "ttl_tpu_torch.serve",
+        "ttl_tpu_torch.adapt.bongard",
+        "ttl_tpu_torch.data.bongard"} <= set(sys.modules)
 print("STANDALONE OK")
 """
 
 
 def test_port_runs_end_to_end_without_jax_or_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", textwrap.dedent(RUN)],
-                          capture_output=True, text=True, timeout=600)
+                          capture_output=True, text=True, timeout=600,
+                          env=test_torch_threads.subprocess_env())
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "STANDALONE OK" in proc.stdout
 
@@ -181,8 +190,17 @@ def test_templates_and_registry_copies_agree():
     for set_id in ["I", "A", "cifar10", "flower102", "nope"]:
         assert tregistry.expected_subdir(set_id) == \
             jregistry.expected_subdir(set_id)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tregistry.build_dataset("bongard", tconfig.TTLConfig())
+
+    def bongard_set(registry, config):
+        return registry.build_dataset("bongard", config.TTLConfig(
+            data="root", dataset_mode="test"))
+    # both read the split file from data/bongard_splits under the working
+    # directory; without it both raise the same error
+    with pytest.raises(FileNotFoundError) as got:
+        bongard_set(tregistry, tconfig)
+    with pytest.raises(FileNotFoundError) as want:
+        bongard_set(jregistry, jconfig)
+    assert str(got.value) == str(want.value)
 
 
 def test_meters_copy_agrees():
@@ -196,3 +214,74 @@ def test_meters_copy_agrees():
         m.update(50.0, 2)
         m.update(100.0, 1)
     assert (str(t), t.summary()) == (str(j), j.summary())
+
+
+def test_bongard_copy_agrees(tmp_path, monkeypatch):
+    """The same split file gives the same episodes: the seed-0 shuffle, the
+    support and query order, the annotation and the val<->train picture
+    path fallback; and the registry builds it from the same place."""
+    import json
+    import os
+    pics = tmp_path / "hake" / "pic" / "image"
+    for split in ("train", "val"):
+        (pics / split).mkdir(parents=True)
+
+    def item(t, i, polarity):
+        """A picture listed under one split; every third one is on disk
+        only under the other."""
+        listed = ("train", "val")[i % 2]
+        on_disk = listed if (i + t) % 3 else ("val", "train")[i % 2]
+        name = f"t{t}_{polarity}{i}.jpg"
+        (pics / on_disk / name).write_bytes(b"")
+        return {"im_path": f"./hake/pic/image/{listed}/{name}"}
+
+    tasks = [[[item(t, i, "n") for i in range(7)],
+              [item(t, i, "p") for i in range(7)], f"ride++horse{t}"]
+             for t in range(3)]
+    splits = tmp_path / "data" / "bongard_splits"
+    splits.mkdir(parents=True)
+    (splits / "bongard_hoi_val_seen_obj_seen_act.json").write_text(
+        json.dumps(tasks))
+    (splits / "bongard_hoi_test_unseen_obj_unseen_act.json").write_text(
+        json.dumps(tasks[:2]))
+    monkeypatch.chdir(tmp_path)
+    got, want = (m.BongardDataset(str(tmp_path), "seen_obj_seen_act",
+                                  mode="val", with_annotation=True)
+                 for m in (tbongard, jbongard))
+    assert len(got) == len(want) == 3
+    for i in range(3):
+        assert dataclasses.asdict(got[i]) == dataclasses.asdict(want[i])
+        assert all(map(os.path.isfile, got[i].support_paths
+                       + got[i].query_paths))
+    built = [r.build_dataset("bongard", c.TTLConfig(data=str(tmp_path)))
+             for r, c in ((tregistry, tconfig), (jregistry, jconfig))]
+    assert type(built[0]) is tbongard.BongardDataset
+    assert len(built[0]) == len(built[1]) == 2
+    assert dataclasses.asdict(built[0][1]) == dataclasses.asdict(built[1][1])
+
+
+def test_tokenizer_copy_agrees_on_the_ensemble_prompts():
+    """Set A's 200 classes under the 80 templates, the ensemble classifier's
+    16,000 prompts: the same tokens from both packages."""
+    names = tclassnames.resolve_classnames("A")
+    prompts = [t.format(c.replace("_", " "))
+               for c in names for t in tprompts.load_imagenet_templates()]
+    assert len(prompts) == 16000
+    np.testing.assert_array_equal(np.asarray(tbpe.tokenize(prompts)),
+                                  np.asarray(jbpe.tokenize(prompts)))
+
+
+def test_tokenizer_resolves_ftfy_once(monkeypatch):
+    """Cleaning a prompt searches for no module: whether ftfy is there was
+    settled when the tokenizer was imported."""
+    import builtins
+    real_import = builtins.__import__
+
+    def no_ftfy(name, *args, **kw):
+        if name == "ftfy":
+            raise AssertionError("ftfy looked up at a call")
+        return real_import(name, *args, **kw)
+
+    monkeypatch.setattr(builtins, "__import__", no_ftfy)
+    assert tbpe._clean("a  photo of a &amp; goldfish. ") == \
+        "a photo of a & goldfish."

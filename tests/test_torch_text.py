@@ -17,8 +17,8 @@ initialisers; everything in f32 at the `test-tiny` size.
   prompt-tuning step against `make_batched_ttl_fn` / `make_tpt_adapt_fn`:
   adapted logits, losses and the adapted ctx within 5e-4, the bound of
   tests/test_torch_adapt.py (forward, backward and AdamW in another order).
-- The fused text-LoRA step from uint8 canvases with JAX's own view draws,
-  and `runner.run` end to end in each new mode under each route.
+- The fused text-LoRA step from uint8 canvases with JAX's own view draws;
+  `runner.run` in each of these modes: tests/test_torch_text_runner.py.
 """
 import dataclasses
 
@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import test_torch_threads  # noqa: F401  (torch threads per worker)
 from test_torch_image import jax_draws, stack_draws
 
 from ttl_tpu.adapt.ttl import make_batched_ttl_fn as j_make_batched
@@ -40,10 +41,8 @@ from ttl_tpu.models.zoo import TEST_TINY as J_TINY
 from ttl_tpu.ops import attention as jfa
 from ttl_tpu.ops import entropy as jent
 from ttl_tpu.ops.lora import init_adapters as j_init_adapters
-from ttl_tpu_torch import runner as trunner
 from ttl_tpu_torch.adapt.ttl import (make_batched_ttl_fn, make_fused_ttl_fn,
                                      make_tpt_adapt_fn)
-from ttl_tpu_torch.data.views import ArrayDataset
 from ttl_tpu_torch.models import clip as tclip
 from ttl_tpu_torch.models import prompts as tprompts
 from ttl_tpu_torch.models.convert import (adapters_from_numpy,
@@ -461,65 +460,3 @@ def test_fused_text_lora_slice_matches_jax(model):
             torch.from_numpy(hs), torch.from_numpy(ws), draws)
     np.testing.assert_allclose(got.logits.numpy(), want, rtol=5e-4,
                                atol=5e-4)
-
-
-# -------------------------------------------------------------------- runner
-
-@pytest.mark.parametrize("route", ["bshd", "per_head", "heads", ""])
-@pytest.mark.parametrize("mode", [
-    {"lora_encoder": "text"}, {"lora_encoder": "prompt"},
-    {"deyo_selection": False},
-    {"lora_encoder": "text", "deyo_selection": False},
-    {"lora_encoder": "prompt", "tta_steps": 0}], ids=str)
-def test_runner_new_modes_end_to_end(route, mode):
-    rng = np.random.default_rng(0)
-    ds = ArrayDataset(rng.integers(0, 256, (3, 40, 56, 3), dtype=np.uint8),
-                      np.array([3, 1, 4]))
-    cfg = TTLConfig(arch="test-tiny", resolution=64, batch_size=V,
-                    sample_batch=2, compute_dtype="float32",
-                    param_dtype="float32", workers=1, **mode)
-    with tfa.force_mode(route):
-        top1, top5 = trunner.run(cfg, device="cpu", datasets={"A": ds})["A"]
-    assert 0.0 <= top1 <= top5 <= 100.0
-
-
-def test_runner_raises_on_unknown_route(monkeypatch):
-    monkeypatch.setenv("TTL_FUSED_ATTENTION", "flash")
-    tfa.reset_mode()
-    try:
-        with pytest.raises(ValueError, match="TTL_FUSED_ATTENTION"):
-            trunner.run(TTLConfig(arch="test-tiny"), device="cpu",
-                        datasets={})
-    finally:
-        monkeypatch.delenv("TTL_FUSED_ATTENTION")
-        tfa.reset_mode()
-
-
-def test_prompt_checkpoint_is_not_ported(tmp_path, capsys):
-    """It was not, and raised; now `--lora_encoder prompt --load FILE` reads
-    the file (tests/test_torch_cocoop.py holds the loaded run against the
-    JAX runner). Here: a path with no file behind it prints the reference's
-    line and the run goes on with the prompt learner's own ctx."""
-    rng = np.random.default_rng(0)
-    ds = ArrayDataset(rng.integers(0, 256, (2, 40, 56, 3), dtype=np.uint8),
-                      np.array([3, 1]))
-    kw = dict(arch="test-tiny", resolution=64, batch_size=V, sample_batch=2,
-              compute_dtype="float32", param_dtype="float32", workers=1,
-              lora_encoder="prompt")
-    want = trunner.run(TTLConfig(**kw), device="cpu", datasets={"A": ds})
-    capsys.readouterr()
-    missing = str(tmp_path / "ctx.pth")
-    got = trunner.run(TTLConfig(load=missing, **kw), device="cpu",
-                      datasets={"A": ds})
-    assert got == want
-    assert f"=> no checkpoint found at '{missing}'" in capsys.readouterr().out
-
-
-def test_text_mode_adapters_take_the_text_width():
-    clip_cfg = dataclasses.replace(
-        TEST_TINY, text=dataclasses.replace(TEST_TINY.text, hidden=48))
-    ad = trunner.make_adapters0(TTLConfig(lora_encoder="text", rank=RANK),
-                                clip_cfg, "cpu")
-    assert ad["q"]["A"].shape == (3, 48, RANK)
-    ad = trunner.make_adapters0(TTLConfig(rank=RANK), clip_cfg, "cpu")
-    assert ad["q"]["A"].shape == (3, TEST_TINY.vision.hidden, RANK)

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_threads  # noqa: F401  (torch threads per worker)
 from ttl_tpu.ops.entropy import deyo_loss as j_deyo_loss
 from ttl_tpu.parallel.eval import make_count_fn
 from ttl_tpu_torch.ops.entropy import deyo_loss

@@ -3,7 +3,8 @@ zero-shot step.
 
 Counterpart of `make_ttl_adapt_fn`, `make_batched_ttl_fn`,
 `make_fused_ttl_fn`, `make_tpt_adapt_fn`, `make_fused_tpt_fn`,
-`make_fused_cocoop_fn` and `make_fused_zeroshot_fn` in
+`make_fused_cocoop_fn` and `make_fused_zeroshot_fn` (with its center-view
+encoder, which `adapt/bongard.py` shares) in
 `ttl_tpu/adapt/ttl.py`. Where the JAX package
 vmaps a per-sample program, the port batches: every trainable leaf carries
 a leading sample axis S. For S samples of V views:
@@ -202,15 +203,26 @@ def _selection_k(cfg: TTLConfig) -> int:
     return max(int(cfg.batch_size * cfg.selection_p), 1)
 
 
+def _classify(params, feats: torch.Tensor, text_cls: torch.Tensor,
+              n_samples: int) -> torch.Tensor:
+    """exp(logit_scale) * feats @ text_cls^T per sample: feats [S*V', P]
+    normalized image features; text_cls [C, P], one classifier for every
+    sample, or [S, C, P], one a sample (the text-side paths' class
+    features, the Bongard prototypes) -> [S, V', C]."""
+    x = torch.exp(params["logit_scale"]) * feats
+    if text_cls.dim() == 2:
+        return (x @ text_cls.T).reshape(n_samples, -1, text_cls.shape[0])
+    return torch.matmul(x.unflatten(0, (n_samples, -1)),
+                        text_cls.transpose(-1, -2))
+
+
 def _class_logits(params, img: torch.Tensor, txt: torch.Tensor,
                   n_samples: int) -> torch.Tensor:
-    """exp(logit_scale) * img @ txt^T per sample: img [S*V, P] normalized
-    image features, txt [S*C, P] text features (normalized here) ->
-    [S, V, C]."""
-    txt = l2_normalize(txt).unflatten(0, (n_samples, -1))
-    img = (torch.exp(params["logit_scale"]) * img).unflatten(
-        0, (n_samples, -1))
-    return torch.matmul(img, txt.transpose(-1, -2))
+    """`_classify` with text features txt [S*C, P], normalized here: one
+    class table a sample -> [S, V, C]."""
+    return _classify(params, img,
+                     l2_normalize(txt).unflatten(0, (n_samples, -1)),
+                     n_samples)
 
 
 def truncate_tokens(tokens) -> np.ndarray:
@@ -221,12 +233,13 @@ def truncate_tokens(tokens) -> np.ndarray:
 
 def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
                         tokens=None, zero_shot_aux: bool = False):
-    """Return f(params, text_cls [C, P], adapters0, views [S, V, 3, H, W],
+    """Return f(params, text_cls, adapters0, views [S, V, 3, H, W],
     plpd_perm=None) -> AdaptResult for S samples adapted independently.
-    `tokens` [C, 77] is the class-prompt table, needed (and `text_cls`
-    ignored) with `--lora_encoder text`. `plpd_perm` [S, steps, ...] holds
-    the PLPD permutations (`draw_plpd_perms`), needed under --filter_plpd
-    with aug_type patch or pixel.
+    `text_cls` is [C, P], or [S, C, P] for one classifier a sample (image
+    mode only). `tokens` [C, 77] is the class-prompt table, needed (and
+    `text_cls` ignored) with `--lora_encoder text`. `plpd_perm`
+    [S, steps, ...] holds the PLPD permutations (`draw_plpd_perms`), needed
+    under --filter_plpd with aug_type patch or pixel.
 
     With `zero_shot_aux` the result's `zero_shot_logits` are the clean
     view's logits without adapters, from the cached frozen state of view 0:
@@ -267,9 +280,7 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
             vf = vision_from_hidden(params["vision"], frozen, vcfg,
                                     adapters=_to_tree(leaves),
                                     adapter_window=window, lora_scale=scale)
-            logits = (torch.exp(params["logit_scale"]) * l2_normalize(vf)
-                      ) @ text_cls.T
-            return logits.reshape(n_samples, -1, logits.shape[-1])
+            return _classify(params, l2_normalize(vf), text_cls, n_samples)
         if txt is None:
             txt = text_side(params, leaves)
         return _class_logits(params, frozen, txt, n_samples)
@@ -312,14 +323,17 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
             if on_image:
                 vf = vision_from_hidden(params["vision"], clean, vcfg,
                                         adapter_window=window)
-                return (torch.exp(params["logit_scale"]) * l2_normalize(vf)
-                        ) @ text_cls.T
+                return _classify(params, l2_normalize(vf), text_cls, s)[:, 0]
             txt = l2_normalize(text_side(params, None))
-            return (torch.exp(params["logit_scale"]) * clean) @ txt.T
+            return _classify(params, clean, txt, s)[:, 0]
 
     def step(params, text_cls, adapters0, views,
              plpd_perm=None) -> AdaptResult:
         s, v = views.shape[:2]
+        if not on_image and text_cls is not None and text_cls.dim() == 3:
+            raise ValueError("a classifier per sample ([S, C, P] text_cls) "
+                             "needs --lora_encoder image: text mode encodes "
+                             "the class prompts itself")
         if plpd_on and plpd_perm is None and cfg.aug_type in ("patch",
                                                               "pixel"):
             raise ValueError("--filter_plpd with aug_type "
@@ -403,18 +417,30 @@ def make_fused_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *, tokens=None,
     return fused
 
 
+def make_center_encoder(clip_cfg: CLIPConfig, cfg: TTLConfig):
+    """f(params, canvases [N, C, C, 3] uint8, hs [N], ws [N]) -> [N, P]
+    L2-normalized frozen features of the deterministic center view."""
+    cd = compute_dtype(cfg)
+
+    @torch.no_grad()
+    def encode(params, canvases, hs, ws) -> torch.Tensor:
+        views = preprocess_center(canvases, hs, ws, cfg.resolution,
+                                  out_dtype=cd)
+        return l2_normalize(encode_image(params["vision"], views,
+                                         clip_cfg.vision, compute_dtype=cd))
+
+    return encode
+
+
 def make_fused_zeroshot_fn(clip_cfg: CLIPConfig, cfg: TTLConfig):
     """Center view + zero-shot classification (tta_steps 0):
     f(params, text_cls [C, P], canvases [S, C, C, 3] uint8, hs [S], ws [S])
     -> logits [S, C]. It consumes no randomness."""
-    cd = compute_dtype(cfg)
+    encode = make_center_encoder(clip_cfg, cfg)
 
     @torch.no_grad()
     def zeroshot(params, text_cls, canvases, hs, ws) -> torch.Tensor:
-        views = preprocess_center(canvases, hs, ws, cfg.resolution,
-                                  out_dtype=cd)
-        vf = l2_normalize(encode_image(params["vision"], views,
-                                       clip_cfg.vision, compute_dtype=cd))
+        vf = encode(params, canvases, hs, ws)
         return torch.exp(params["logit_scale"]) * vf @ text_cls.T
 
     return zeroshot

@@ -4,8 +4,7 @@ Same set_id surface as the reference (data/datautils.py:20-73): ImageNet 'I',
 OOD variants 'A'/'K'/'R'/'V', the ten CoOp cross-datasets, and 'bongard'.
 Datasets here are lightweight *sample lists* (path, label) - decoding and
 augmentation live in `data/views.py` (host decode -> device views), not in
-worker processes. The port's own copy of `ttl_tpu/data/registry.py`; the
-bongard set is not ported yet.
+worker processes. The port's own copy of `ttl_tpu/data/registry.py`.
 """
 from __future__ import annotations
 
@@ -76,8 +75,8 @@ def build_dataset(set_id: str, args, n_shot=None):
             ds.max_image_dim = 64
         return ds
     if set_id == "bongard":
-        raise NotImplementedError("the bongard set is not ported yet "
-                                  "(ROADMAP Queue 1, item 16)")
+        from .bongard import BongardDataset
+        return BongardDataset(root, mode=args.dataset_mode)
     if set_id.lower() == "cifar10":
         from .cifar10 import Cifar10Dataset
         return Cifar10Dataset(os.path.join(root, _CIFAR10_DIR),

@@ -15,7 +15,8 @@ the prompt learner or the CoCoOp state), streams samples through
 `SampleLoader`, and runs one fused step per batch of `sample_batch` samples:
 views rendered on the device, the episodic adaptation and the adapted
 clean-view logits (or the center view's zero-shot logits), and top-1/top-5
-counts on the device.
+counts on the device. The `bongard` set runs its own episodic protocol
+(`adapt/bongard.py`).
 
 The loader's prefetch thread makes each batch's random view draws and, for
 a CUDA device, copies the batch to the device from pinned memory on a
@@ -39,6 +40,7 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .adapt.bongard import evaluate_bongard
 from .adapt.cocoop import init_cocoop
 from .adapt.ttl import (check_supported, compute_dtype, draw_plpd_perms,
                         make_fused_cocoop_fn, make_fused_tpt_fn,
@@ -140,6 +142,15 @@ def sample_draws(cfg: TTLConfig, indices) -> dict:
     return draws
 
 
+def full_f32_products(device) -> None:
+    """f32 products in full f32 on the card, as on the CPU: TF32 off for
+    matmuls and convolutions. Every entry point calls it before its first
+    product on `device`."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def _switched_on(name: str) -> bool:
     """An A/B switch of the reference's runner: on unless set to '0'."""
     return os.environ.get(name, "1") != "0"
@@ -177,6 +188,17 @@ def _make_upload(cfg: TTLConfig, device, batch_size: int,
         return moved
 
     return upload
+
+
+def on_current_stream(b: DeviceBatch, device) -> DeviceBatch:
+    """Have the current stream wait for a batch uploaded on the side stream,
+    and keep its tensors' memory until the current stream has used them."""
+    if b.ready is not None:
+        stream = torch.cuda.current_stream(device)
+        stream.wait_event(b.ready)
+        for t in b.tensors():
+            t.record_stream(stream)
+    return b
 
 
 def text_classifier(set_id: str, cfg: TTLConfig, clip_cfg, params, *,
@@ -333,13 +355,7 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
                 "it)") from e
 
     def dispatch(b) -> torch.Tensor:
-        if not overlap:
-            b = upload(b)
-        if b.ready is not None:
-            stream = torch.cuda.current_stream(device)
-            stream.wait_event(b.ready)
-            for t in b.tensors():
-                t.record_stream(stream)
+        b = on_current_stream(b if overlap else upload(b), device)
         return topk_counts(step_fn(b), b.labels, b.valid)
 
     def drain(i, pending):
@@ -374,12 +390,7 @@ def run(cfg: TTLConfig, *, device, datasets: Optional[Dict] = None,
     `datasets` optionally maps set_id -> dataset object (tests, smoke runs)."""
     device = torch.device(device)
     check_supported(cfg)
-    if "bongard" in cfg.test_sets.split("/"):
-        raise NotImplementedError("the bongard set is not ported yet "
-                                  "(ROADMAP Queue 1, item 16)")
-    if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+    full_f32_products(device)
     # an unknown TTL_FUSED_ATTENTION, TTL_LN_STATS, TTL_LORA_COMPUTE or
     # TTL_ATTN_SCORES raises before any work
     for read_switch in (fused_mode, ln_stats_mode, lora_compute_mode,
@@ -403,16 +414,25 @@ def run(cfg: TTLConfig, *, device, datasets: Optional[Dict] = None,
     for set_id in cfg.test_sets.split("/"):
         print(f"evaluating: {set_id}", flush=True)
         ds = datasets.get(set_id) if datasets else None
-        if ds is None:
+        if ds is None and set_id != "bongard":
             sub = expected_subdir(set_id)
             if sub is not None and not dataset_exists(set_id, cfg.data):
                 raise FileNotFoundError(
                     f"dataset {set_id!r} not found under {cfg.data!r} "
                     f"(expected directory {sub!r}); pass the dataset root "
                     "as the positional DATA argument or --data")
-        results[set_id] = evaluate_dataset(
-            set_id, cfg, clip_cfg, params, adapters0, device=device,
-            dataset=ds, max_samples=max_samples, prompt_ckpt=prompt_ckpt)
+        if set_id == "bongard":
+            # the episodic few-shot protocol (a support-prototype
+            # classifier); the 2-way task has no meaningful top-5
+            acc = evaluate_bongard(
+                cfg, ds if ds is not None else build_dataset(set_id, cfg),
+                clip_cfg, params, adapters0, device=device,
+                max_episodes=max_samples)
+            results[set_id] = [acc, 100.0]
+        else:
+            results[set_id] = evaluate_dataset(
+                set_id, cfg, clip_cfg, params, adapters0, device=device,
+                dataset=ds, max_samples=max_samples, prompt_ckpt=prompt_ckpt)
         print("=> Acc. on testset [{}]: @1 {:.2f}/ @5 {:.2f}".format(
             set_id, results[set_id][0], results[set_id][1]), flush=True)
 

@@ -23,6 +23,13 @@ from typing import Dict, List, Tuple
 
 import regex as re
 
+try:  # ftfy when available, to mirror the reference bit-for-bit; resolved
+    # once here, since a failed import search on every call costs more than
+    # the rest of the tokenizer
+    import ftfy
+except ImportError:
+    ftfy = None
+
 _ASSET = Path(__file__).resolve().parent.parent / "data" / "assets" / \
     "clip_bpe_merges.txt.gz"
 
@@ -52,10 +59,9 @@ def _byte_unicode_table() -> Dict[int, str]:
 
 def _clean(text: str) -> str:
     text = html.unescape(html.unescape(text))
-    try:  # ftfy when available, to mirror the reference bit-for-bit
-        import ftfy
+    if ftfy is not None:
         text = ftfy.fix_text(text)
-    except ImportError:
+    else:
         text = unicodedata.normalize("NFC", text)
     text = re.sub(r"\s+", " ", text)
     return text.strip()
