@@ -139,7 +139,28 @@ per source, side by side), then:
    directory): adapted, 12 K1 an episode for the support encoder and 15 K1
    / 3 K2 for the queries' step, twice with the same bits; zero-shot, 24
    K1 an episode; `-a RN50 --tta_steps 0`, no launch; then the adapted
-   protocol timed and profiled.
+   protocol timed and profiled (`tools/torch_kernel_callers.py` names the
+   operators that launch its top kernels);
+31. `python -m ttl_tpu_torch DATA --test_sets A --profile DIR` through
+   `cli.main` over 80 images written in set A's layout: 15 K1 and 3 K2
+   launches a batch, one trace in DIR whose `utils.profiling.op_stats` rows
+   name K1's and K2's kernels at those launches, the steady samples/s under
+   the profiler beside phase 4's, and the device time's sum beside the
+   union of its intervals;
+32. `utils.analysis` at ViT-B/16 over 2 images: the attention maps on the
+   card against the CPU in f32 within ANALYSIS_BOUND, rows summing to 1, the
+   rollout and the overlay in [0, 1];
+33. data-parallel evaluation, two ranks on cuda:0 (`rank_worker` processes
+   of `cli.main(... --test_sets cifar10 --init_distributed --sample_batch
+   16 --canvas 32)` over a synthetic CIFAR-10 test batch of 128 images)
+   against one process at `--sample_batch 8`: the same top-1/top-5, 15 K1
+   and 3 K2 launches a local batch on each rank, the summary on rank 0
+   alone, each sample's logits (the runner's, and those gathered by
+   `parallel.eval.make_sharded_ttl_fn`) against the single process's, and
+   each process's steady s/batch.
+
+Every device time comes from `ttl_tpu_torch/utils/profiling.py`'s reading
+of a torch.profiler trace (`profiled`), the reader `--profile` uses.
 
 Every kernel's line also carries `bound_ms`, the least time the card could
 take for the call (the larger of its bytes over 3.35 TB/s and its operations
@@ -588,27 +609,27 @@ def phase_other_geometries(fa) -> dict:
 
 def k5_launch_ms(tq, x, pq, reps: int = 5, tries: int = 3):
     """Device ms of each of K5's launches within one call at x's shape,
-    averaged over the launches of `reps` calls (torch.profiler): (Q)
-    `quant_rows`, (W) `transpose_w`, (G) `gemm`. A profiler run in a
-    process that has run others may record no kernel at all: it is run
-    again, and after `tries` empty runs the result is None."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    averaged over the launches of `reps` calls, read by `utils.profiling`
+    (`trace`, `op_stats`): (Q) `quant_rows`, (W) `transpose_w`, (G) `gemm`.
+    A profiler run in a process that has run others may record no kernel at
+    all: it is run again, and after `tries` empty runs the result is None."""
+    import tempfile
+    from ttl_tpu_torch.utils.profiling import op_stats, trace
     tq.linear_q(x, pq)
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                tq.linear_q(x, pq)
-            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp, "cuda"):
+                for _ in range(reps):
+                    tq.linear_q(x, pq)
+            rows = op_stats(tmp, top=10 ** 6)
         out = {}
-        for e in prof.key_averages():
-            found = re.search(r"k5_(\w+?)_kernel", e.key)
-            if e.device_type == DeviceType.CUDA and found:
+        for r in rows:
+            found = re.search(r"k5_(\w+?)_kernel", r["operation"])
+            if found:
                 # per launch the profiler kept (it may miss a call's)
-                out[found.group(1)] = (e.self_device_time_total / 1e3
-                                       / e.count)
+                out[found.group(1)] = (r["self_time_us"] / 1e3
+                                       / r["occurrences"])
         if set(out) == {"quant_rows", "transpose_w", "gemm"}:
             return out
     return None
@@ -651,7 +672,7 @@ def phase_k5(tq) -> dict:
                     2 * t * k * n, torch.int8)}
         if dtype == torch.bfloat16 and t == K5_ROWS:
             launch = k5_launch_ms(tq, x, pq)
-            log(f"K5 [{t}, {k}] x [{k}, {n}] per launch (torch.profiler): "
+            log(f"K5 [{t}, {k}] x [{k}, {n}] per launch (utils.profiling): "
                 + ("not measured (the profiler recorded no kernel)"
                    if launch is None else
                    f"(Q) quant_rows {launch['quant_rows']:.4f} ms, (W) "
@@ -783,21 +804,24 @@ def config(*flags):
         ["synthetic", "--test_sets", "A", "--seed", str(SEED), *flags]))
 
 
+def op_table(rows: list) -> str:
+    """`utils.profiling.op_stats` rows as lines: device ms, launches, share
+    of the device time, the operation's name."""
+    return "\n".join(f"  {r['self_time_us'] / 1e3:9.3f} ms "
+                     f"{r['occurrences']:6d}x {100 * r['fraction']:5.1f}%  "
+                     f"{r['operation'][:120]}" for r in rows)
+
+
 def profiled(fn, *args):
-    """fn(*args) under torch.profiler, waited for: (its result, the device
-    busy ms, the table of the top CUDA kernels)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res = fn(*args)
-        torch.cuda.synchronize()
-    avg = prof.key_averages()
-    # device events only: a CPU op's device time repeats its kernels'
-    busy_ms = sum(e.self_device_time_total for e in avg
-                  if e.device_type == DeviceType.CUDA) / 1e3
-    return res, busy_ms, avg.table(sort_by="self_cuda_time_total",
-                                   row_limit=15, max_name_column_width=60)
+    """fn(*args) under `utils.profiling.trace`, waited for: (its result, the
+    device busy ms, the table of the top device operations), read from the
+    trace by the module that `--profile` reads it with."""
+    import tempfile
+    from ttl_tpu_torch.utils.profiling import device_busy_us, op_stats, trace
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, "cuda"):
+            res = fn(*args)
+        return res, device_busy_us(tmp) / 1e3, op_table(op_stats(tmp))
 
 
 class StepProbe:
@@ -1986,6 +2010,363 @@ def phase_bongard(fa, tq, build_dir) -> dict:
     return out
 
 
+def write_image_folder(root: str, n: int, seed: int) -> str:
+    """`n` images (`write_images`) over 8 class folders of set A's layout
+    under `root` (`imagenet-adversarial/imagenet-a/<class>/`), as a user's
+    `DATA` holds them; returns `root`."""
+    from ttl_tpu_torch.data.registry import ID_TO_DIRNAME
+    for c in range(8):
+        write_images(os.path.join(root, ID_TO_DIRNAME["A"], f"class{c:02d}"),
+                     n // 8 + (c < n % 8), seed + c)
+    return root
+
+
+def phase_profile(fa, tq, build_dir, main_rate: float) -> dict:
+    """`python -m ttl_tpu_torch DATA --test_sets A --profile DIR` through
+    `cli.main` at ViT-B/16 over 80 images on disk (set A's layout, JPEG and
+    PNG): 15 K1 and 3 K2 launches a batch; DIR holds one trace, whose
+    `op_stats` rows name K1's kernel and K2's two kernels at those launches,
+    and whose untruncated busy time is at least the top 15 rows' sum. The
+    steady s/batch under the profiler beside phase 4's, and the device
+    time's sum beside its union (copies on the upload stream overlap
+    compute)."""
+    import tempfile
+    from ttl_tpu_torch import cli, runner
+    from ttl_tpu_torch.utils.profiling import (device_busy_us,
+                                               device_union_us, op_stats)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        data = write_image_folder(os.path.join(tmp, "data"), 80, SEED + 71)
+        log_dir = os.path.join(tmp, "profile")
+        probe = StepProbe(runner.make_fused_ttl_fn)
+        runner.make_fused_ttl_fn = probe
+        reset_counts(fa, tq)
+        start = time.perf_counter()
+        try:
+            res = cli.main([data, "--test_sets", "A", "--seed", str(SEED),
+                            "--profile", log_dir])
+        finally:
+            runner.make_fused_ttl_fn = probe.make_step
+        seconds = time.perf_counter() - start
+        counts = launch_counts(fa, tq)
+        probe.check(8, 200)
+        traces = os.listdir(log_dir)
+        rows = op_stats(log_dir, top=10 ** 6)
+        busy_us, union_us = device_busy_us(log_dir), device_union_us(log_dir)
+    n = len(probe.starts)
+    expect = {**dict.fromkeys(counts, 0), "K1": 15 * n, "K2": 3 * n}
+    log(f"--profile: {n} batches, launches {counts}, top1/top5 {res['A']}, "
+        f"whole call {seconds:.1f} s; {traces}")
+    if n != 10 or counts != expect or len(traces) != 1:
+        raise AssertionError(f"--profile: expected 10 batches of 15 K1 and 3 "
+                             f"K2 launches and one trace, got {n}, {counts}, "
+                             f"{traces}")
+
+    def launches_of(kernel):
+        return sum(r["occurrences"] for r in rows if kernel in r["operation"])
+
+    named = {k: launches_of(k) for k in ("mma_fwd_kernel",
+                                          "mma_bwd_rows_kernel",
+                                          "mma_bwd_keys_kernel")}
+    top15 = sum(r["self_time_us"] for r in rows[:15])
+    log(f"--profile: op_stats names K1 and K2 at {named} launches; device "
+        f"busy {busy_us / 1e3:.3f} ms (top 15 rows {top15 / 1e3:.3f} ms) over "
+        f"{len(rows)} operations")
+    if named != {"mma_fwd_kernel": 15 * n, "mma_bwd_rows_kernel": 3 * n,
+                 "mma_bwd_keys_kernel": 3 * n} or busy_us < top15:
+        raise AssertionError(f"--profile: op_stats rows {named}, busy "
+                             f"{busy_us} < top 15 {top15}")
+    pace = np.diff(probe.starts[config().pipeline_depth + 1:])
+    rate = 8 / np.median(pace)
+    log(f"--profile steady state: s/batch {pace.tolist()}, median "
+        f"{np.median(pace):.4f} s, samples/s {rate:.3f} against phase 4's "
+        f"{main_rate:.3f} ({100 * (main_rate / rate - 1):.1f}% longer a "
+        f"batch under the profiler)")
+    log(f"--profile: device time of the run, sum of the operations "
+        f"{busy_us / 1e3:.3f} ms, union of their intervals "
+        f"{union_us / 1e3:.3f} ms ({busy_us / union_us:.4f}x; per batch "
+        f"{busy_us / 1e3 / n:.3f} and {union_us / 1e3 / n:.3f} ms)")
+    return {"launches": counts, "samples_per_s": rate, "busy_ms": busy_us
+            / 1e3 / n, "union_ms": union_us / 1e3 / n}
+
+
+ANALYSIS_BOUND = 1e-4     # card against CPU, f32 attention probabilities
+
+
+def phase_analysis() -> dict:
+    """`utils.analysis` at ViT-B/16 (f32 weights from the seed) over 2
+    images at 224 px on the card: every attention row sums to 1 within 1e-3,
+    the maps agree with a CPU run within ANALYSIS_BOUND, and the rollout
+    (discard_ratio 0 and 0.1) and the overlay are finite in [0, 1]."""
+    from ttl_tpu_torch.models.clip import init_clip_params
+    from ttl_tpu_torch.models.zoo import get_arch
+    from ttl_tpu_torch.utils.analysis import (attention_rollout,
+                                              heatmap_overlay,
+                                              vision_attention_maps)
+    vcfg = get_arch("ViT-B/16").vision
+    params = init_clip_params(get_arch("ViT-B/16"),
+                              torch.Generator().manual_seed(SEED),
+                              device=torch.device("cpu"),
+                              param_dtype=torch.float32)["vision"]
+    images = torch.from_numpy(np.random.default_rng(SEED + 81)
+                              .standard_normal((2, 3, 224, 224))
+                              .astype(np.float32))
+    from ttl_tpu_torch.models.clip import tree_map
+    start = time.perf_counter()
+    card = vision_attention_maps(tree_map(lambda t: t.cuda(), params),
+                                 images.cuda(), vcfg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - start
+    cpu = vision_attention_maps(params, images, vcfg)
+    err = (card.cpu() - cpu).abs().max().item()
+    row_err = (card.sum(-1) - 1).abs().max().item()
+    rel = {r: attention_rollout(card, r) for r in (0.0, 0.1)}
+    overlay = heatmap_overlay(np.random.default_rng(SEED + 82).random(
+        (224, 224, 3)).astype(np.float32), rel[0.0][0].cpu().numpy())
+    log(f"analysis: maps {tuple(card.shape)} in {card_s:.3f} s on the card; "
+        f"rows sum to 1 within {row_err:.2e}; card against CPU {err:.3e} "
+        f"(bound {ANALYSIS_BOUND:.0e}); rollout ranges "
+        + ", ".join(f"{r}: [{v.min().item():.4f}, {v.max().item():.4f}]"
+                    for r, v in rel.items())
+        + f"; overlay [{overlay.min():.4f}, {overlay.max():.4f}]")
+    in_unit = [np.isfinite(x).all() and x.min() >= 0 and x.max() <= 1 + 1e-6
+               for x in [v.cpu().numpy() for v in rel.values()] + [overlay]]
+    if card.shape != (12, 2, 12, 197, 197) or row_err > 1e-3 \
+            or err > ANALYSIS_BOUND or not all(in_unit):
+        raise AssertionError(f"analysis: rows {row_err}, card against CPU "
+                             f"{err}, in [0, 1]: {in_unit}")
+    return {"max_abs_err": err}
+
+
+def rank_worker(argv: list) -> int:
+    """One process of phase 33: `cli.main(argv[2:])` with a StepProbe in the
+    runner's place of make_fused_ttl_fn; then, where argv[1] names a second
+    port, the first local batch once more through
+    `parallel.eval.make_sharded_ttl_fn` in a group joined on that port. The
+    launches, results, each batch's logits with the rows' dataset indices,
+    the dispatch clock, the host ms of each all-reduce and the gathered
+    logits go to the JSON file argv[0]."""
+    import torch.distributed as dist
+    from ttl_tpu_torch import cli, runner
+    from ttl_tpu_torch.adapt.ttl import compute_dtype
+    from ttl_tpu_torch.data.classnames import resolve_classnames
+    from ttl_tpu_torch.data.registry import build_dataset
+    from ttl_tpu_torch.data.views import SampleLoader
+    from ttl_tpu_torch.ops import attention as fa
+    from ttl_tpu_torch.ops import quant as tq
+    from ttl_tpu_torch.ops.image import render_views
+    from ttl_tpu_torch.parallel.eval import (all_gather_rows,
+                                             make_sharded_ttl_fn)
+    from ttl_tpu_torch.parallel.mesh import make_mesh
+    out_path, second_port, cli_argv = argv[0], argv[1], argv[2:]
+    probe = StepProbe(runner.make_fused_ttl_fn)
+    runner.make_fused_ttl_fn = probe
+    all_reduce, reduce_ms = dist.all_reduce, []
+
+    def timed_all_reduce(*args, **kw):
+        start = time.perf_counter()
+        all_reduce(*args, **kw)
+        reduce_ms.append(1e3 * (time.perf_counter() - start))
+
+    dist.all_reduce = timed_all_reduce
+    reset_counts(fa, tq)
+    try:
+        results = cli.main(cli_argv)
+    finally:
+        dist.all_reduce = all_reduce
+    counts = launch_counts(fa, tq)
+    cfg = cli.config_from_args(cli.build_parser().parse_args(cli_argv))
+    probe.check(cfg.sample_batch // int(os.environ.get("WORLD_SIZE", "1")),
+                len(resolve_classnames(cfg.test_sets)))
+    rank, world = (int(os.environ.get(k, d)) for k, d in (("RANK", "0"),
+                                                          ("WORLD_SIZE", "1")))
+    local_bs = cfg.sample_batch // world
+
+    def loader():
+        return SampleLoader(build_dataset(cfg.test_sets, cfg),
+                            batch_size=local_bs,
+                            seed=cfg.seed, canvas=cfg.canvas,
+                            shard=(rank, world) if world > 1 else None)
+
+    out = {"launches": counts, "results": results, "starts": probe.starts,
+           "reduce_ms": reduce_ms,
+           "indices": loader().order.tolist(),
+           "logits": torch.cat(probe.logits).float().cpu().tolist()}
+    if second_port != "-":
+        os.environ["MASTER_PORT"] = second_port
+        dist.init_process_group("gloo", init_method="env://")
+        try:
+            device = torch.device(
+                f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}")
+            mesh = make_mesh(cfg.mesh_shape, device)
+            clip_cfg, params = runner.load_model(cfg, device)
+            adapters0 = runner.make_adapters0(cfg, clip_cfg, device)
+            text_cls = runner.text_classifier(cfg.test_sets, cfg, clip_cfg,
+                                              params, device=device)
+            b = next(iter(loader()))
+            draws = {k: t.to(device) for k, t in
+                     runner.sample_draws(cfg, b.indices).items()}
+            with torch.no_grad():
+                views = render_views(
+                    *(torch.from_numpy(x).to(device)
+                      for x in (b.canvases, b.heights, b.widths)),
+                    draws, out_size=cfg.resolution,
+                    out_dtype=compute_dtype(cfg))
+            res = make_sharded_ttl_fn(clip_cfg, cfg, mesh)(
+                params, text_cls, adapters0, views, draws.get("plpd_perm"))
+            out["sharded_indices"] = all_gather_rows(
+                torch.from_numpy(b.indices)).tolist()
+            out["sharded_logits"] = res.logits.float().cpu().tolist()
+        finally:
+            dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+DP_IMAGES = 128
+
+
+def write_cifar10(root: str, n: int, seed: int) -> str:
+    """`n` 32 x 32 noise images with labels 0-9 as a CIFAR-10 test batch
+    (`root/cifar-10-batches-py/test_batch`, the python pickle layout); returns
+    `root`."""
+    import pickle
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "cifar-10-batches-py"))
+    with open(os.path.join(root, "cifar-10-batches-py", "test_batch"),
+              "wb") as f:
+        pickle.dump({b"data": rng.integers(0, 256, (n, 3072), dtype=np.uint8),
+                     b"labels": rng.integers(0, 10, n).tolist()}, f)
+    return root
+
+
+def phase_data_parallel(build_dir, cards: int = 1) -> dict:
+    """Data-parallel evaluation as two one-card hosts would run it, both
+    ranks on cuda:0: two processes of `cli.main([DATA, --test_sets cifar10,
+    --init_distributed, --sample_batch 16, --canvas 32])` (RANK 0 and 1,
+    WORLD_SIZE 2, LOCAL_RANK 0, a free MASTER_PORT; LOCAL_RANK r % `cards`
+    as torch.distributed.run gives it where `cards` > 1), each a local
+    batch of 8 over its shard of 128 images (10 classes, so that the counts
+    are not all zero at random weights); then one process with `--sample_batch 8`.
+    Both ranks exit 0 with the single process's top-1 and top-5, 15 K1 and
+    3 K2 launches a local batch, rank 0 alone prints the summary. Each
+    sample's logits are compared, by dataset index, with the single
+    process's: the runner's, and the first local batches'
+    gathered through `make_sharded_ttl_fn`; a difference is printed, and
+    must stay within GRAD_BOUND_REL["main path"] of the largest logit at
+    the same top-1. The steady s/batch of each process is printed (two
+    ranks share one card, so it is no scaling figure), and the host ms of
+    each rank's all-reduce of the counts, a batch."""
+    import socket
+    import tempfile
+    ports = []
+    for _ in range(2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            ports.append(str(s.getsockname()[1]))
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        data = write_cifar10(os.path.join(tmp, "data"), DP_IMAGES, SEED + 91)
+        flags = [data, "--test_sets", "cifar10", "--seed", str(SEED),
+                 "--canvas", "32"]
+
+        def start(name, port2, argv, env):
+            with open(os.path.join(tmp, name + ".log"), "w") as log_file:
+                return subprocess.Popen(
+                    [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+                     "chip_smoke.rank_worker(sys.argv[1:]))",
+                     os.path.join(tmp, name + ".json"), port2, *argv],
+                    cwd=root, env={**os.environ, **env}, stdout=log_file,
+                    stderr=subprocess.STDOUT)
+
+        def finish(procs):
+            try:
+                for p in procs.values():
+                    p.wait(timeout=900)
+            finally:
+                for p in procs.values():
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            out = {}
+            for name, p in procs.items():
+                with open(os.path.join(tmp, name + ".log")) as f:
+                    text = f.read()
+                if p.returncode != 0:
+                    raise AssertionError(f"{name} exited {p.returncode}:\n"
+                                         + text[-4000:])
+                with open(os.path.join(tmp, name + ".json")) as f:
+                    out[name] = {**json.load(f), "stdout": text}
+            return out
+
+        t0 = time.perf_counter()
+        env = {"WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": ports[0]}
+        ranks = finish({f"rank {r}": start(
+            f"rank {r}", ports[1], flags + ["--init_distributed",
+                                            "--sample_batch", "16"],
+            {**env, "RANK": str(r), "LOCAL_RANK": str(r % cards)})
+            for r in range(2)})
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        single = finish({"one process": start("one process", "-",
+                                              flags + ["--sample_batch", "8"],
+                                              {})})["one process"]
+        single_s = time.perf_counter() - t0
+
+    def by_index(run, key="logits", index_key="indices"):
+        return dict(zip(run[index_key], np.asarray(run[key], np.float32)))
+
+    want = by_index(single)
+    n_local = DP_IMAGES // 16
+    lines = []
+    for name, run in ranks.items():
+        expect = {**dict.fromkeys(run["launches"], 0), "K1": 15 * n_local,
+                  "K2": 3 * n_local}
+        summary = "Result Summary" in run["stdout"]
+        if run["results"] != single["results"] or run["launches"] != expect \
+                or summary != (name == "rank 0") \
+                or single["results"]["cifar10"][1] == 0.0:
+            raise AssertionError(f"{name}: results {run['results']} against "
+                                 f"{single['results']}, launches "
+                                 f"{run['launches']}, summary printed: "
+                                 f"{summary}")
+        for key, index_key in (("logits", "indices"),
+                               ("sharded_logits", "sharded_indices")):
+            got = by_index(run, key, index_key)
+            diff = max(np.abs(got[i] - want[i]).max() for i in got)
+            same = sum(np.array_equal(got[i], want[i]) for i in got)
+            top1 = all(got[i].argmax() == want[i].argmax() for i in got)
+            scale = max(np.abs(want[i]).max() for i in got)
+            lines.append(f"{name}, {key}: {same} of {len(got)} samples bit "
+                         f"for bit the single process's, largest difference "
+                         f"{diff:.3e} ({diff / scale:.3e} of the largest "
+                         f"logit), top-1 {'agrees' if top1 else 'DIFFERS'}")
+            if not top1 or diff > GRAD_BOUND_REL["main path"] * scale:
+                raise AssertionError(lines[-1])
+    depth = config().pipeline_depth
+    pace = {name: np.median(np.diff(run["starts"][depth + 1:]))
+            for name, run in {**ranks, "one process": single}.items()}
+    log("data-parallel: " + "; ".join(lines))
+    log("data-parallel: the all-reduce of a batch's counts, host ms "
+        + "; ".join(f"{name} median {np.median(run['reduce_ms']):.3f} over "
+                    f"{len(run['reduce_ms'])} calls, {run['reduce_ms']}"
+                    for name, run in ranks.items()))
+    log(f"data-parallel: results {single['results']} on both ranks and the "
+        f"single process; launches a rank {ranks['rank 0']['launches']} over "
+        f"{n_local} local batches; rank 0 alone printed the summary; "
+        f"steady s/batch (median of the dispatch clock) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in pace.items())
+        + (" (two ranks share one card: no scaling figure)" if cards == 1
+           else f" (a rank a card, on {cards} cards)")
+        + f"; the two ranks "
+        f"took {ranks_s:.1f} s, the single process {single_s:.1f} s, start "
+        f"and set-up included")
+    return {**{name: {"launches": run["launches"]}
+               for name, run in ranks.items()},
+            "pace": pace}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2078,14 +2459,26 @@ def main() -> int:
         start = time.perf_counter()
         seconds[phase] = (run(), time.perf_counter() - start)
         log(f"phase {phase} took {seconds[phase][1]:.1f} s")
+    for phase, run in ((31, lambda: phase_profile(
+                            fa, tq, lib.parent, main_path["samples_per_s"])),
+                       (32, phase_analysis),
+                       (33, lambda: phase_data_parallel(lib.parent))):
+        start = time.perf_counter()
+        seconds[phase] = (run(), time.perf_counter() - start)
+        log(f"phase {phase} took {seconds[phase][1]:.1f} s")
     predict_runs, served, bongard_runs = (seconds[p][0] for p in (27, 29, 30))
+    profile_run, _, data_parallel = (seconds[p][0] for p in (31, 32, 33))
     log(f"new paths: predict {predict_runs['predict']['samples_per_s']:.3f} "
         f"images/s at {100 * predict_runs['predict']['busy_share']:.1f}% "
         f"busy; serve ready in {served['ready_s']:.3f} s, first answer in "
         f"{served['first_response_s']:.3f} s; Bongard adapted "
         f"{bongard_runs['Bongard']['images_per_s']:.3f} images/s at "
         f"{100 * bongard_runs['Bongard']['busy_share']:.1f}% busy; phases "
-        f"27-30 took {sum(t for _, t in seconds.values()):.1f} s")
+        f"27-30 took {sum(seconds[p][1] for p in (27, 28, 29, 30)):.1f} s; "
+        f"--profile {profile_run['samples_per_s']:.3f} samples/s against "
+        f"the main path's {main_path['samples_per_s']:.3f}; the data-parallel "
+        f"steady s/batch {data_parallel.pop('pace')}; phases 31-33 took "
+        f"{sum(seconds[p][1] for p in (31, 32, 33)):.1f} s")
     paths = {"main path": main_path, "int8 main path": int8_path,
              "zero-shot": zero_shot, "text-LoRA (per_head)": text_path,
              "prompt tuning (heads)": prompt_path, "CoCoOp": cocoop_path,
@@ -2104,6 +2497,9 @@ def main() -> int:
     paths.update(checkpoints)
     paths.update(predict_runs)
     paths.update(bongard_runs)
+    paths["--profile"] = profile_run
+    paths.update({f"data-parallel, {name}": r
+                  for name, r in data_parallel.items()})
 
     def by_path(key):
         return {name: r["launches"][key] for name, r in paths.items()}

@@ -8,9 +8,9 @@ crc32 of its bytes) handed to the port's `runner.draw_batch`; everything in
 f32 at the `test-tiny` size. Tolerance: 1e-5 relative (and 1e-6 absolute)
 at f32, on the probabilities.
 
-Data-parallel serving is not ported: `use_mesh=True`, a config's
+Serving over several cards is not ported: `use_mesh=True`, a config's
 `mesh_shape` and the CLI's `--mesh` / `--mesh_shape` raise
-NotImplementedError naming ROADMAP item 17, where the JAX file tests the
+NotImplementedError naming ROADMAP item 21, where the JAX file tests the
 mesh predictor.
 """
 import io
@@ -312,14 +312,14 @@ def test_predictor_validates_modes(cfg_kw, match):
 def test_mesh_serving_raises_not_implemented(how):
     kw = {"use_mesh": True} if how == "use_mesh" else {}
     cfg = TTLConfig(**KW, mesh_shape=(4, 2) if how == "mesh_shape" else None)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 21"):
         TTLPredictor(CLASSES, cfg, device="cpu", params={},
                      clip_cfg=TEST_TINY, warmup=False, **kw)
 
 
 @pytest.mark.parametrize("flags", [["--mesh"], ["--mesh_shape", "4,2"]])
 def test_cli_mesh_flags_raise_not_implemented(flags):
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 21"):
         tserve.main(["--test_sets", "eurosat", *flags])
 
 

@@ -187,7 +187,7 @@ def test_cli_refuses_to_run_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh_shape", "2"],
+    ["--mesh_shape", "2,2"],     # a model axis (the data axis is covered)
 ])
 def test_uncovered_flags_raise(flags):
     args = tcli.build_parser().parse_args(["data", *flags])

@@ -40,6 +40,8 @@ import ttl_tpu_torch.utils.checkpoint, ttl_tpu_torch.models.convert
 import ttl_tpu_torch.models.resnet
 import ttl_tpu_torch.predict, ttl_tpu_torch.serve
 import ttl_tpu_torch.adapt.bongard, ttl_tpu_torch.data.bongard
+import ttl_tpu_torch.utils.profiling, ttl_tpu_torch.utils.analysis
+import ttl_tpu_torch.parallel.mesh, ttl_tpu_torch.parallel.eval
 from ttl_tpu_torch.config import TTLConfig
 from ttl_tpu_torch.data.views import ArrayDataset
 from ttl_tpu_torch.models.clip import CLIPConfig
@@ -80,8 +82,10 @@ foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "ttl_tpu"))
 assert not foreign, foreign
 assert {"ttl_tpu_torch.predict", "ttl_tpu_torch.serve",
-        "ttl_tpu_torch.adapt.bongard",
-        "ttl_tpu_torch.data.bongard"} <= set(sys.modules)
+        "ttl_tpu_torch.adapt.bongard", "ttl_tpu_torch.data.bongard",
+        "ttl_tpu_torch.utils.profiling", "ttl_tpu_torch.utils.analysis",
+        "ttl_tpu_torch.parallel.mesh",
+        "ttl_tpu_torch.parallel.eval"} <= set(sys.modules)
 print("STANDALONE OK")
 """
 

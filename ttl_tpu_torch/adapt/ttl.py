@@ -58,6 +58,7 @@ from ..ops.entropy import deyo_loss, select_confident, tpt_loss
 from ..ops.image import (Draws, preprocess_center, render_views,
                          resize_bilinear, sample_generator)
 from ..ops.lora import lora_scale
+from ..parallel.mesh import NOT_PORTED_MODEL_AXIS
 
 # torch.optim.AdamW defaults, as the reference and the JAX package use them
 ADAMW_BETAS = (0.9, 0.999)
@@ -85,10 +86,9 @@ def check_supported(cfg: TTLConfig) -> None:
     """Raise NotImplementedError for what this port does not cover yet,
     naming the ROADMAP (Queue 1) item that brings it."""
     check_aug_ops(cfg.aug_ops)
-    if cfg.mesh_shape is not None:
-        raise NotImplementedError("--mesh_shape is not ported to "
-                                  "ttl_tpu_torch yet (ROADMAP Queue 1, "
-                                  "item 17)")
+    if cfg.mesh_shape is not None and len(cfg.mesh_shape) > 1 \
+            and cfg.mesh_shape[1] > 1:
+        raise NotImplementedError(NOT_PORTED_MODEL_AXIS)
 
 
 # ------------------------------------------------------ PLPD counterfactuals

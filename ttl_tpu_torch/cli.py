@@ -3,16 +3,26 @@
 The port's own copy of the parser in `ttl_tpu/cli.py`: every flag parses
 with the same name, type and default as for `python -m ttl_tpu`. The run
 goes to `cuda:{--gpu}`; without CUDA the CLI raises and never carries on on
-the CPU. `--profile` and `--init_distributed`, and the flags the port does
-not cover yet, raise NotImplementedError naming their ROADMAP item.
+the CPU. `--profile DIR` traces the run with torch.profiler into DIR
+(DIR/rank<r> under several processes) and prints rank 0's top device
+operations. `--init_distributed` joins the process group that
+`python -m torch.distributed.run` describes in the environment (RANK,
+WORLD_SIZE, MASTER_ADDR, MASTER_PORT), over gloo, and the rank runs on
+`cuda:{LOCAL_RANK}`: N cards take N processes. A model axis in
+`--mesh_shape` is not covered yet and raises NotImplementedError naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
+import torch.distributed
 
+from .adapt.ttl import check_supported
 from .config import TTLConfig
+from .parallel.mesh import check_mesh_shape, world_and_rank
 
 
 def list_of_ints(arg: str):
@@ -129,15 +139,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_samples", default=None, type=int,
                    help="cap samples per dataset (smoke runs)")
     p.add_argument("--mesh_shape", type=list_of_ints, default=None,
-                   help="device mesh, e.g. 8 (data) or 4,2 (data,model); "
-                        "default: all devices on the data axis")
+                   help="process mesh, N (data) or N,1; its product is the "
+                        "number of processes (default: all on the data "
+                        "axis); a model axis (N,M with M > 1) is not ported")
     p.add_argument("--profile", default=None, type=str, metavar="DIR",
-                   help="not ported yet: raises NotImplementedError")
+                   help="trace the run with torch.profiler into DIR and "
+                        "print the top device ops")
     p.add_argument("--results_json", default=None, type=str, metavar="PATH",
                    help="also write the end-of-run summary (per-set "
                         "top1/top5 + the exact config) as JSON to PATH")
     p.add_argument("--init_distributed", action="store_true",
-                   help="not ported yet: raises NotImplementedError")
+                   help="join the torch.distributed group of the "
+                        "environment (python -m torch.distributed.run "
+                        "--nproc_per_node N): each process runs on "
+                        "cuda:LOCAL_RANK and loads its shard of the samples; "
+                        "the counts are summed over processes")
     return p
 
 
@@ -157,18 +173,42 @@ def config_from_args(args: argparse.Namespace) -> TTLConfig:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    if args.profile:
-        raise NotImplementedError("--profile is not ported yet "
-                                  "(ROADMAP Queue 1, item 18)")
-    if args.init_distributed:
-        raise NotImplementedError("--init_distributed is not ported yet "
-                                  "(ROADMAP Queue 1, item 17)")
+    if args.init_distributed and cfg.gpu != TTLConfig().gpu:
+        raise ValueError("--gpu does not apply with --init_distributed: each "
+                         "process runs on cuda:LOCAL_RANK")
+    check_supported(cfg)
+    if not args.init_distributed:
+        check_mesh_shape(cfg.mesh_shape, 1)
     if not torch.cuda.is_available():
         raise RuntimeError("ttl_tpu_torch needs a CUDA device; none is "
                            "available")
     from .runner import run
-    return run(cfg, device=torch.device(f"cuda:{cfg.gpu}"),
-               max_samples=args.max_samples)
+    device = torch.device(f"cuda:{cfg.gpu}")
+    if args.init_distributed:
+        torch.distributed.init_process_group("gloo", init_method="env://")
+        device = torch.device(f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}")
+    # the kernels launch on the current device's streams: make it this
+    # process's card
+    torch.cuda.set_device(device)
+    try:
+        if not args.profile:
+            return run(cfg, device=device, max_samples=args.max_samples)
+        from .utils.profiling import op_stats, trace
+        world, rank = world_and_rank()
+        # each rank traces its own card
+        log_dir = args.profile if world == 1 else os.path.join(
+            args.profile, f"rank{rank}")
+        with trace(log_dir, device):
+            results = run(cfg, device=device, max_samples=args.max_samples)
+        if rank == 0:
+            for row in op_stats(log_dir):
+                print(f"{row['fraction']*100:5.1f}%  "
+                      f"{row['bound_by'] or '':10}"
+                      f"  {str(row['operation'])[:90]}")
+        return results
+    finally:
+        if args.init_distributed:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -185,13 +185,14 @@ def crop_resize(canvases: torch.Tensor, boxes: torch.Tensor,
     return torch.matmul(rows, wx[:, :, None])               # [S,V,3,out,out]
 
 
-def resize_bilinear(x: torch.Tensor, size: int) -> torch.Tensor:
-    """x [..., H, W] -> [..., size, size], as `jax.image.resize(method=
-    "bilinear")`: the triangle kernel, widened to antialias where an axis
-    shrinks, one weight matrix per axis in x's dtype, H contracted first and
-    each product rounded to x's dtype; an axis already at `size` is
-    kept."""
-    for dim in (-2, -1):
+def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """x [..., H, W] -> [..., size, size] (or [..., *size] for a pair), as
+    `jax.image.resize(method="bilinear")`: the triangle kernel, widened to
+    antialias where an axis shrinks, one weight matrix per axis in x's
+    dtype, H contracted first and each product rounded to x's dtype; an
+    axis already at its size is kept."""
+    sizes = (size, size) if isinstance(size, int) else tuple(size)
+    for dim, size in zip((-2, -1), sizes):
         n = x.shape[dim]
         if n == size:
             continue

@@ -197,10 +197,12 @@ def main(argv=None):
             classnames = json.load(f)
     else:
         classnames = resolve_classnames(args.test_sets)
+    device = torch.device(f"cuda:{args.gpu}")
+    # the kernels launch on the current device's streams
+    torch.cuda.set_device(device)
     sink = open(args.out, "w") if args.out else sys.stdout
     try:
-        n = predict_directory(cfg, classnames,
-                              device=torch.device(f"cuda:{args.gpu}"),
+        n = predict_directory(cfg, classnames, device=device,
                               topk=args.topk, out=sink)
     finally:
         if args.out:

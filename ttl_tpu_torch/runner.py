@@ -18,6 +18,14 @@ clean-view logits (or the center view's zero-shot logits), and top-1/top-5
 counts on the device. The `bongard` set runs its own episodic protocol
 (`adapt/bongard.py`).
 
+Under `torch.distributed` (one process a card, `parallel/mesh.py`) each rank
+loads its shard of the seed-shared sample order (`SampleLoader(shard=)`),
+`sample_batch // world` samples a step, and every rank dispatches the same
+number of steps, all-padding filler batches masked out of the counts. The
+step is the single-card program; each batch's counts are summed over the
+ranks on the host before the meters update, so every rank's results are the
+global ones, and rank 0 alone prints and writes `--results_json`.
+
 The loader's prefetch thread makes each batch's random view draws and, for
 a CUDA device, copies the batch to the device from pinned memory on a
 side stream, so the upload overlaps the previous step's compute; the step
@@ -61,7 +69,8 @@ from .ops.image import draw_batch
 from .ops.attention import fused_mode, scores_mode
 from .ops.lora import adapter_param_count, init_adapters
 from .ops.quant import attach_prefix_quant, quant_prefix_len
-from .parallel.eval import topk_counts
+from .parallel.eval import sum_over_ranks, topk_counts
+from .parallel.mesh import Mesh, make_mesh, replicate
 from .utils.checkpoint import (apply_cocoop_ckpt, apply_prompt_ckpt,
                                load_prompt_state_dict)
 from .utils.meters import AverageMeter, ProgressMeter, Summary
@@ -251,9 +260,11 @@ def prompt_classifier(pl_state, cfg: TTLConfig, clip_cfg,
 def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
                      adapters0, *, device, dataset=None,
                      max_samples: Optional[int] = None,
-                     prompt_ckpt: Optional[dict] = None) -> List[float]:
-    """One dataset: returns [top1, top5] percentages. `prompt_ckpt` is the
-    state dict of a `--load` checkpoint, for the modes that read it."""
+                     prompt_ckpt: Optional[dict] = None,
+                     mesh: Optional[Mesh] = None) -> List[float]:
+    """One dataset: returns [top1, top5] percentages, over every rank of
+    `mesh` (None: this process alone). `prompt_ckpt` is the state dict of a
+    `--load` checkpoint, for the modes that read it."""
     if cfg.ensemble and (cfg.cocoop or cfg.lora_encoder != "image"):
         raise ValueError(
             "--ensemble replaces the frozen single-template text classifier "
@@ -270,17 +281,29 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
             "LoRA adaptation requires a ViT backbone (as in the reference). "
             "Use --lora_encoder prompt|text or --tta_steps 0.")
     device = torch.device(device)
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    if cfg.sample_batch % world:
+        raise ValueError(f"sample_batch ({cfg.sample_batch}) must be a "
+                         f"multiple of the number of processes ({world})")
+    local_bs = cfg.sample_batch // world
     if dataset is None:
         dataset = build_dataset(set_id, cfg)
+    n_total = len(dataset) if max_samples is None \
+        else min(len(dataset), max_samples)
     canvas = cfg.canvas if cfg.canvas > 0 else \
         (getattr(dataset, "max_image_dim", None) or DEFAULT_CANVAS)
     overlap = _switched_on("TTL_UPLOAD_OVERLAP")
-    upload = _make_upload(cfg, device, cfg.sample_batch, overlap)
+    upload = _make_upload(cfg, device, local_bs, overlap)
+    # ranks share no canvas bucket choice, so they keep the full canvas
     loader = SampleLoader(
-        dataset, batch_size=cfg.sample_batch, shuffle=True, seed=cfg.seed,
+        dataset, batch_size=local_bs, shuffle=True, seed=cfg.seed,
         canvas=canvas,
-        bucket_canvas=cfg.canvas == 0 and _switched_on("TTL_CANVAS_BUCKETS"),
+        bucket_canvas=(cfg.canvas == 0 and world == 1
+                       and _switched_on("TTL_CANVAS_BUCKETS")),
         max_samples=max_samples, workers=cfg.workers,
+        shard=(rank, world) if world > 1 else None,
+        total_batches=(-(-n_total // cfg.sample_batch) if world > 1
+                       else None),
         transform=upload if overlap else None)
     if cfg.cocoop:
         # whatever tta_steps is: the reference's final inference ignores the
@@ -359,12 +382,12 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
         return topk_counts(step_fn(b), b.labels, b.valid)
 
     def drain(i, pending):
-        c1, c5, n = pending.tolist()
+        c1, c5, n = sum_over_ranks(pending).tolist()
         if n > 0:
             top1.update(100.0 * c1 / n, n)
             top5.update(100.0 * c5 / n, n)
         batch_time.update(time.time() - end)
-        if (i + 1) % cfg.print_freq == 0:
+        if (i + 1) % cfg.print_freq == 0 and rank == 0:
             progress.display(i)
 
     # keep steps queued on the device while the host reads older counts
@@ -380,16 +403,26 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
         for item in in_flight:
             drain(*item)
             end = time.time()
-    progress.display_summary()
+    if rank == 0:
+        progress.display_summary()
     return [top1.avg, top5.avg]
 
 
 def run(cfg: TTLConfig, *, device, datasets: Optional[Dict] = None,
         max_samples: Optional[int] = None) -> Dict[str, List[float]]:
     """Every set of cfg.test_sets, with the reference's summary table.
-    `datasets` optionally maps set_id -> dataset object (tests, smoke runs)."""
+    `datasets` optionally maps set_id -> dataset object (tests, smoke runs).
+    Under an initialized torch.distributed group every process calls it,
+    each with its own device, and the data axis spans the group
+    (`cfg.mesh_shape`, default all of it)."""
     device = torch.device(device)
     check_supported(cfg)
+    mesh = make_mesh(cfg.mesh_shape, device)
+    is_main = mesh.rank == 0
+    if mesh.world > 1 and "bongard" in cfg.test_sets.split("/"):
+        raise ValueError("--test_sets bongard is not sharded over processes "
+                         "(its episodes run one after the other on one "
+                         "device); run it in a single process")
     full_f32_products(device)
     # an unknown TTL_FUSED_ATTENTION, TTL_LN_STATS, TTL_LORA_COMPUTE or
     # TTL_ATTN_SCORES raises before any work
@@ -397,22 +430,28 @@ def run(cfg: TTLConfig, *, device, datasets: Optional[Dict] = None,
                         scores_mode):
         read_switch()
     clip_cfg, params = load_model(cfg, device)
-    adapters0 = (None if cfg.lora_encoder == "prompt"
-                 else make_adapters0(cfg, clip_cfg, device))
+    params = replicate(params, mesh)
+    adapters0 = replicate(None if cfg.lora_encoder == "prompt"
+                          else make_adapters0(cfg, clip_cfg, device), mesh)
     extra = (f" ({adapter_param_count(adapters0):,} LoRA params/sample)"
              if adapters0 is not None else "")
-    print(f"=> Model created: visual backbone {cfg.arch}{extra}", flush=True)
+    if is_main:
+        print(f"=> Model created: visual backbone {cfg.arch}{extra}",
+              flush=True)
+        if mesh.world > 1:
+            print(f"data-parallel eval over mesh {mesh.shape}", flush=True)
     prompt_ckpt = None
     if cfg.load and (cfg.cocoop or cfg.lora_encoder == "prompt"):
         prompt_ckpt = load_prompt_state_dict(cfg.load)
-    elif cfg.load:
+    elif cfg.load and is_main:
         print(f"WARNING: --load {cfg.load} is a CoOp/CoCoOp prompt "
               "checkpoint and has no effect in the LoRA modes; ignoring it, "
               "as the reference does", flush=True)
 
     results: Dict[str, List[float]] = {}
     for set_id in cfg.test_sets.split("/"):
-        print(f"evaluating: {set_id}", flush=True)
+        if is_main:
+            print(f"evaluating: {set_id}", flush=True)
         ds = datasets.get(set_id) if datasets else None
         if ds is None and set_id != "bongard":
             sub = expected_subdir(set_id)
@@ -432,10 +471,14 @@ def run(cfg: TTLConfig, *, device, datasets: Optional[Dict] = None,
         else:
             results[set_id] = evaluate_dataset(
                 set_id, cfg, clip_cfg, params, adapters0, device=device,
-                dataset=ds, max_samples=max_samples, prompt_ckpt=prompt_ckpt)
-        print("=> Acc. on testset [{}]: @1 {:.2f}/ @5 {:.2f}".format(
-            set_id, results[set_id][0], results[set_id][1]), flush=True)
+                dataset=ds, max_samples=max_samples, prompt_ckpt=prompt_ckpt,
+                mesh=mesh)
+        if is_main:
+            print("=> Acc. on testset [{}]: @1 {:.2f}/ @5 {:.2f}".format(
+                set_id, results[set_id][0], results[set_id][1]), flush=True)
 
+    if not is_main:
+        return results
     print("======== Result Summary ========")
     print("params: nstep\tlr\tbs")
     print(f"params: {cfg.tta_steps}\t{cfg.lr}\t{cfg.batch_size}")

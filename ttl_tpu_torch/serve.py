@@ -14,8 +14,10 @@ serializing one 64-view adaptation per request.
 
 The command runs on a CUDA card (`--gpu`); `TTLPredictor(...,
 device="cpu")` runs the plain versions of the kernels on the CPU.
-Data-parallel serving over several devices (`use_mesh`, `--mesh`,
-`--mesh_shape`) is not ported and raises NotImplementedError.
+Serving over several cards (`use_mesh`, `--mesh`, `--mesh_shape`) is not
+ported and raises NotImplementedError (ROADMAP Queue 1, item 21): one JAX
+process spans every local chip, where the port runs one process a card, so
+it needs a front process and ranks.
 """
 from __future__ import annotations
 
@@ -45,9 +47,9 @@ from .predict import softmax_np
 from .runner import (full_f32_products, load_model, make_adapters0,
                      sample_draws)
 
-NOT_PORTED_MESH = ("data-parallel serving (use_mesh, --mesh, --mesh_shape) "
-                   "is not ported to ttl_tpu_torch yet (ROADMAP Queue 1, "
-                   "item 17)")
+NOT_PORTED_MESH = ("serving over several cards (use_mesh, --mesh, "
+                   "--mesh_shape) is not ported to ttl_tpu_torch yet "
+                   "(ROADMAP Queue 1, item 21)")
 
 
 class TTLPredictor:
