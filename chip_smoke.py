@@ -25,9 +25,11 @@ per source, side by side), then:
    within GRAD_BOUND_REL of its largest element (zero-shot: the logits
    within CARD_CPU_BOUND);
 6. K1/K2 at the towers' other geometries (ViT-L/14@336px's 592 tokens in
-   bf16 and f32, ViT-L/14's 272, ViT-B/32's 64 with 50 true tokens)
-   against their plain versions, and the route each takes: bf16 the tensor
-   cores at every length, f32 the FMA routes;
+   bf16 and f32, ViT-L/14's 272, ViT-B/32's 64 with 50 true tokens, and a
+   rank's heads on a model axis of 2: ViT-B/16's 6 at [512, 208, 384],
+   ViT-L/14's 8 at [64, 272, 512]) against their plain versions, and the
+   route each takes: bf16 the tensor cores at every length, f32 the FMA
+   routes;
 7. K5, the int8 linear, against `linear_q_plain` on the card at the main
    path's shapes and zero-shot's [1664, 768] x [768, 768] (bit for bit),
    with the bf16 `linear` it replaces timed beside it; at the main path's
@@ -157,7 +159,27 @@ per source, side by side), then:
    and 3 K2 launches a local batch on each rank, the summary on rank 0
    alone, each sample's logits (the runner's, and those gathered by
    `parallel.eval.make_sharded_ttl_fn`) against the single process's, and
-   each process's steady s/batch.
+   each process's steady s/batch;
+34. the model axis, two ranks of one model group on cuda:0 over gloo
+   (`rank_worker` processes of `cli.main(... --test_sets A
+   --init_distributed --mesh_shape 1,2 --sample_batch 2)` over 12 images in
+   set A's layout: 200 classes, so the classifier is split by classes)
+   against one process at `--sample_batch 2`: 15 K1 and 3 K2 launches a
+   batch on each rank, every K1 at 6 heads, the one process's counts and
+   every sample's top-1, the two ranks bit for bit, rank 0's logits and
+   first-update gradients within MODEL_AXIS_BOUND_REL of their largest
+   element; each rank's steady s/batch and the host ms of its model
+   group's collectives a batch (`phase_model_axis(cards=2)` runs it on two
+   cards over NCCL);
+35. serving over two ranks on cuda:0: `python -m ttl_tpu_torch.serve
+   --test_sets I --sample_batch 2 --mesh_shape 2`, then `1,2`, two
+   processes each as torch.distributed.run starts them; a burst of 8 PNGs
+   against the one-process predictor's answers (labels, zero-shot labels,
+   top-5 probabilities within MODEL_AXIS_BOUND_REL["logits"]), then
+   SIGTERM: rank 0 drains, both exit 0;
+36. the tools: `tools/torch_quant_fidelity.py --samples 16` at ViT-B/16
+   (its JSON line), and `tools/torch_convert_checkpoint.py` on phase 26's
+   seeded RN50 `.pt`: the `.npz` holds the checkpoint's leaves bit for bit.
 
 Every device time comes from `ttl_tpu_torch/utils/profiling.py`'s reading
 of a torch.profiler trace (`profiled`), the reader `--profile` uses.
@@ -201,11 +223,14 @@ FWD_BOUND = {torch.bfloat16: 2 * 2.0 ** -8, torch.float32: 1e-5}
 # another order, 1e-4 of the largest gradient.
 BWD_BOUND_REL = {torch.bfloat16: 4 * 2.0 ** -8, torch.float32: 1e-4}
 # K1/K2 at the towers' other geometries: (batch, padded tokens, true
-# tokens, heads, width, dtype): ViT-L/14@336px, ViT-L/14, ViT-B/32
+# tokens, heads, width, dtype): ViT-L/14@336px, ViT-L/14, ViT-B/32, and a
+# rank's heads on a model axis of 2 (phase 34): ViT-B/16's 6, ViT-L/14's 8
 OTHER_FWD = [(16, 592, 577, 16, 1024, torch.bfloat16),
              (16, 592, 577, 16, 1024, torch.float32),
              (64, 272, 257, 16, 1024, torch.bfloat16),
-             (512, 64, 50, 12, 768, torch.bfloat16)]
+             (512, 64, 50, 12, 768, torch.bfloat16),
+             (512, 208, 197, 6, 384, torch.bfloat16),
+             (64, 272, 257, 8, 512, torch.bfloat16)]
 OTHER_BWD = OTHER_FWD + [(16, 272, 257, 16, 1024, torch.float32)]
 # K5 at the main path's shapes, T = 512 views x 208 tokens, and at
 # zero-shot's q, k, v and o, T = 8 center views x 208: (T, K, N, dtype)
@@ -249,6 +274,18 @@ GRAD_BOUND_REL = {
                                        # tower's features on cuDNN against
                                        # the CPU's convolutions
 }
+# Phase 34, the model axis (two ranks of one model group) against one
+# process, both bf16 on the card: the rank sums o's and fc2's partial
+# products in f32 and rounds once, where one card's GEMM accumulates them in
+# f32 in another order and rounds once, so an activation may round one bf16
+# step the other way, and that spreads through the layers and AdamW's step.
+# Each bound, relative to the largest element, is twice the largest
+# difference that tools/torch_card_cpu_noise.py --model_axis measured over
+# image seeds 92-99, rounded up to a power of two (H100 80GB HBM3, 700 W;
+# PERF.md). The logits come after AdamW's lr * sign(g) step, which turns
+# gradient elements near 0 the other way, so they spread wider.
+MODEL_AXIS_BOUND_REL = {"logits": 2.0 ** -5,      # largest 1.38e-2
+                        "gradient": 2.0 ** -7}    # largest 2.20e-3
 # PLPD's flags in phase 22. With random weights the top class of a view
 # holds a few percent of the mass over 200 classes, so the default
 # threshold of 0.2 would drop every view and the step would update nothing;
@@ -447,11 +484,12 @@ def bshd_yardstick(b, s, seq_len, heads, width) -> tuple:
 
 def phase_bshd_yardstick(other: dict) -> tuple:
     """The yardstick at K1/K2's main-path shape (returned) and at
-    ViT-L/14@336px's, whose bf16 entries of `other` it completes."""
-    b, s, seq_len, heads, width, _ = OTHER_FWD[0]
-    fwd, bwd = bshd_yardstick(b, s, seq_len, heads, width)
-    other[("fwd", s, torch.bfloat16)]["library_ms"] = fwd
-    other[("bwd", s, torch.bfloat16)]["library_ms"] = bwd
+    ViT-L/14@336px's and a model-axis rank's 6 heads, whose bf16 entries of
+    `other` it completes."""
+    for b, s, seq_len, heads, width, _ in (OTHER_FWD[0], OTHER_FWD[4]):
+        fwd, bwd = bshd_yardstick(b, s, seq_len, heads, width)
+        other[("fwd", s, width, torch.bfloat16)]["library_ms"] = fwd
+        other[("bwd", s, width, torch.bfloat16)]["library_ms"] = bwd
     return bshd_yardstick(512, SEQ_PAD, SEQ, HEADS, WIDTH)
 
 
@@ -598,12 +636,12 @@ def phase_other_geometries(fa) -> dict:
     out = {}
     for b, s, seq_len, heads, width, dtype in OTHER_FWD:
         expect_route(fa, False, dtype, s, width // heads)
-        out[("fwd", s, dtype)] = check_forward(fa, b, s, seq_len, heads,
-                                               width, dtype, seed=s)
+        out[("fwd", s, width, dtype)] = check_forward(
+            fa, b, s, seq_len, heads, width, dtype, seed=s)
     for b, s, seq_len, heads, width, dtype in OTHER_BWD:
         expect_route(fa, True, dtype, s, width // heads)
-        out[("bwd", s, dtype)] = check_backward(fa, b, s, seq_len, heads,
-                                                width, dtype, seed=s + 1)
+        out[("bwd", s, width, dtype)] = check_backward(
+            fa, b, s, seq_len, heads, width, dtype, seed=s + 1)
     return out
 
 
@@ -2138,13 +2176,16 @@ def phase_analysis() -> dict:
 
 
 def rank_worker(argv: list) -> int:
-    """One process of phase 33: `cli.main(argv[2:])` with a StepProbe in the
-    runner's place of make_fused_ttl_fn; then, where argv[1] names a second
-    port, the first local batch once more through
+    """One process of phases 33 and 34: `cli.main(argv[3:])` with a
+    StepProbe in the runner's place of make_fused_ttl_fn; then, where
+    argv[1] names a second port, the first local batch once more through
     `parallel.eval.make_sharded_ttl_fn` in a group joined on that port. The
-    launches, results, each batch's logits with the rows' dataset indices,
-    the dispatch clock, the host ms of each all-reduce and the gathered
-    logits go to the JSON file argv[0]."""
+    launches, the head count of each K1 launch, results, each batch's
+    logits with the rows' dataset indices, the dispatch clock, the host ms
+    of each all-reduce of the counts, the host ms and number of the model
+    group's collectives, and the gathered logits go to the JSON file
+    argv[0]; where argv[2] is "grads", the gradient of every AdamW update
+    (which waits for the device at each step) goes to argv[0] + ".pt"."""
     import torch.distributed as dist
     from ttl_tpu_torch import cli, runner
     from ttl_tpu_torch.adapt.ttl import compute_dtype
@@ -2156,16 +2197,37 @@ def rank_worker(argv: list) -> int:
     from ttl_tpu_torch.ops.image import render_views
     from ttl_tpu_torch.parallel.eval import (all_gather_rows,
                                              make_sharded_ttl_fn)
+    from ttl_tpu_torch.adapt import ttl
     from ttl_tpu_torch.parallel.mesh import make_mesh
-    out_path, second_port, cli_argv = argv[0], argv[1], argv[2:]
+    out_path, second_port, cli_argv = argv[0], argv[1], argv[3:]
     probe = StepProbe(runner.make_fused_ttl_fn)
     runner.make_fused_ttl_fn = probe
+    meshes, heads, grads = [], [], []
+    runner.make_mesh = lambda *a, **k: meshes.append(make_mesh(*a, **k)) \
+        or meshes[-1]
+    forward, adamw = fa.bshd_forward_cuda, ttl._adamw
+
+    def counted_forward(q, k, v, h, seq_len):
+        heads.append(h)
+        return forward(q, k, v, h, seq_len)
+
+    def recording(params, g, *rest):
+        grads.append(torch.cat([t.detach().float().flatten().cpu()
+                                for t in g]))
+        return adamw(params, g, *rest)
+
+    fa.bshd_forward_cuda = counted_forward
+    if argv[2] == "grads":
+        ttl._adamw = recording
     all_reduce, reduce_ms = dist.all_reduce, []
 
-    def timed_all_reduce(*args, **kw):
+    def timed_all_reduce(t, *args, **kw):
         start = time.perf_counter()
-        all_reduce(*args, **kw)
-        reduce_ms.append(1e3 * (time.perf_counter() - start))
+        all_reduce(t, *args, **kw)
+        # the counts (int64); the model group's f32 sums are timed by its
+        # own clock (parallel.tensor.ModelGroup)
+        if t.dtype == torch.int64:
+            reduce_ms.append(1e3 * (time.perf_counter() - start))
 
     dist.all_reduce = timed_all_reduce
     reset_counts(fa, tq)
@@ -2175,20 +2237,24 @@ def rank_worker(argv: list) -> int:
         dist.all_reduce = all_reduce
     counts = launch_counts(fa, tq)
     cfg = cli.config_from_args(cli.build_parser().parse_args(cli_argv))
-    probe.check(cfg.sample_batch // int(os.environ.get("WORLD_SIZE", "1")),
-                len(resolve_classnames(cfg.test_sets)))
-    rank, world = (int(os.environ.get(k, d)) for k, d in (("RANK", "0"),
-                                                          ("WORLD_SIZE", "1")))
-    local_bs = cfg.sample_batch // world
+    mesh = meshes[0]
+    n_data = mesh.shape["data"]
+    local_bs = cfg.sample_batch // n_data
+    probe.check(local_bs, len(resolve_classnames(cfg.test_sets)))
 
     def loader():
         return SampleLoader(build_dataset(cfg.test_sets, cfg),
                             batch_size=local_bs,
                             seed=cfg.seed, canvas=cfg.canvas,
-                            shard=(rank, world) if world > 1 else None)
+                            shard=(mesh.data_index, n_data) if n_data > 1
+                            else None)
 
+    model = mesh.model
     out = {"launches": counts, "results": results, "starts": probe.starts,
-           "reduce_ms": reduce_ms,
+           "reduce_ms": reduce_ms, "heads": sorted(set(heads)),
+           "model_ms": None if model is None else 1e3 * model.seconds,
+           "model_calls": None if model is None else model.calls,
+           "model_backend": None if model is None else model.backend,
            "indices": loader().order.tolist(),
            "logits": torch.cat(probe.logits).float().cpu().tolist()}
     if second_port != "-":
@@ -2220,6 +2286,8 @@ def rank_worker(argv: list) -> int:
             dist.destroy_process_group()
     with open(out_path, "w") as f:
         json.dump(out, f)
+    if grads:
+        torch.save(grads, out_path + ".pt")
     return 0
 
 
@@ -2257,61 +2325,25 @@ def phase_data_parallel(build_dir, cards: int = 1) -> dict:
     the same top-1. The steady s/batch of each process is printed (two
     ranks share one card, so it is no scaling figure), and the host ms of
     each rank's all-reduce of the counts, a batch."""
-    import socket
     import tempfile
-    ports = []
-    for _ in range(2):
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            ports.append(str(s.getsockname()[1]))
-    root = os.path.dirname(os.path.abspath(__file__))
+    ports = [free_port(), free_port()]
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         data = write_cifar10(os.path.join(tmp, "data"), DP_IMAGES, SEED + 91)
         flags = [data, "--test_sets", "cifar10", "--seed", str(SEED),
                  "--canvas", "32"]
-
-        def start(name, port2, argv, env):
-            with open(os.path.join(tmp, name + ".log"), "w") as log_file:
-                return subprocess.Popen(
-                    [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
-                     "chip_smoke.rank_worker(sys.argv[1:]))",
-                     os.path.join(tmp, name + ".json"), port2, *argv],
-                    cwd=root, env={**os.environ, **env}, stdout=log_file,
-                    stderr=subprocess.STDOUT)
-
-        def finish(procs):
-            try:
-                for p in procs.values():
-                    p.wait(timeout=900)
-            finally:
-                for p in procs.values():
-                    if p.poll() is None:
-                        p.kill()
-                        p.wait()
-            out = {}
-            for name, p in procs.items():
-                with open(os.path.join(tmp, name + ".log")) as f:
-                    text = f.read()
-                if p.returncode != 0:
-                    raise AssertionError(f"{name} exited {p.returncode}:\n"
-                                         + text[-4000:])
-                with open(os.path.join(tmp, name + ".json")) as f:
-                    out[name] = {**json.load(f), "stdout": text}
-            return out
-
         t0 = time.perf_counter()
         env = {"WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1",
                "MASTER_PORT": ports[0]}
-        ranks = finish({f"rank {r}": start(
-            f"rank {r}", ports[1], flags + ["--init_distributed",
-                                            "--sample_batch", "16"],
-            {**env, "RANK": str(r), "LOCAL_RANK": str(r % cards)})
-            for r in range(2)})
+        ranks = finish_ranks(tmp, start_ranks(
+            tmp, {f"rank {r}": flags + ["--init_distributed", "--sample_batch",
+                                        "16"] for r in range(2)},
+            {f"rank {r}": {**env, "RANK": str(r), "LOCAL_RANK": str(r % cards)}
+             for r in range(2)}, second_port=ports[1]))
         ranks_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        single = finish({"one process": start("one process", "-",
-                                              flags + ["--sample_batch", "8"],
-                                              {})})["one process"]
+        single = finish_ranks(tmp, start_ranks(
+            tmp, {"one process": flags + ["--sample_batch", "8"]},
+            {"one process": {}}))["one process"]
         single_s = time.perf_counter() - t0
 
     def by_index(run, key="logits", index_key="indices"):
@@ -2365,6 +2397,341 @@ def phase_data_parallel(build_dir, cards: int = 1) -> dict:
     return {**{name: {"launches": run["launches"]}
                for name, run in ranks.items()},
             "pace": pace}
+
+
+MA_IMAGES = 12
+
+
+def start_ranks(tmp: str, argvs: dict, envs: dict, second_port: str = "-",
+                grads: bool = False) -> dict:
+    """`rank_worker` processes by name (argv, extra environment; the
+    worker's argv[1] is `second_port`, and with `grads` it records every
+    AdamW update's gradient), their output in tmp/<name>.log and their
+    results in tmp/<name>.json."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    for name, argv in argvs.items():
+        with open(os.path.join(tmp, name + ".log"), "w") as log_file:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+                 "chip_smoke.rank_worker(sys.argv[1:]))",
+                 os.path.join(tmp, name + ".json"), second_port,
+                 "grads" if grads else "-", *argv],
+                cwd=root, env={**os.environ, **envs[name]},
+                stdout=log_file, stderr=subprocess.STDOUT)
+    return procs
+
+
+def finish_ranks(tmp: str, procs: dict, timeout: float = 900) -> dict:
+    """Wait for `start_ranks`' processes (killing any left); each must exit
+    0; their JSON results with their output under "stdout"."""
+    try:
+        for p in procs.values():
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = {}
+    for name, p in procs.items():
+        with open(os.path.join(tmp, name + ".log")) as f:
+            text = f.read()
+        if p.returncode != 0:
+            raise AssertionError(f"{name} exited {p.returncode}:\n"
+                                 + text[-4000:])
+        with open(os.path.join(tmp, name + ".json")) as f:
+            out[name] = {**json.load(f), "stdout": text}
+        grads = os.path.join(tmp, name + ".json.pt")
+        if os.path.exists(grads):
+            out[name]["grads"] = torch.load(grads)
+    return out
+
+
+def free_port() -> str:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return str(s.getsockname()[1])
+
+
+def relative_error(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def phase_model_axis(build_dir, cards: int = 1, seed: int = SEED + 92,
+                     bound: Optional[dict] = None) -> dict:
+    """The model axis as two one-card ranks of one model group run it:
+    two `rank_worker` processes of `cli.main([DATA, --test_sets A,
+    --init_distributed, --mesh_shape 1,2, --sample_batch 2])` (RANK 0 and
+    1, WORLD_SIZE 2, LOCAL_RANK r % `cards`: both on cuda:0, gloo, by
+    default; two cards over NCCL with `cards` 2) over MA_IMAGES images on
+    disk in set A's layout (200 classes: the classifier is split by
+    classes), then one process at `--sample_batch 2`. Both ranks exit 0
+    with the one process's top-1 and top-5; each runs 15 K1 and 3 K2 a
+    batch, every K1 at 6 heads (the one process at 12); rank 0 alone
+    prints the summary; every sample's top-1 is the one process's, and on
+    rank 0 every sample's logits and every batch's first-update gradient lie
+    within `bound` (MODEL_AXIS_BOUND_REL; None: printed only) of their
+    largest element. Prints each rank's steady s/batch and the host ms of
+    the model group's collectives a batch. Returns the launches and the
+    errors."""
+    import tempfile
+    bound = MODEL_AXIS_BOUND_REL if bound is None else bound
+    env = {"WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": free_port()}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        data = write_image_folder(os.path.join(tmp, "data"), MA_IMAGES, seed)
+        flags = [data, "--test_sets", "A", "--seed", str(SEED),
+                 "--sample_batch", "2"]
+        ranks = finish_ranks(tmp, start_ranks(
+            tmp, {f"rank {r}": flags + ["--init_distributed", "--mesh_shape",
+                                        "1,2"] for r in range(2)},
+            {f"rank {r}": {**env, "RANK": str(r),
+                           "LOCAL_RANK": str(r % cards)} for r in range(2)},
+            grads=True))
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        single = finish_ranks(tmp, start_ranks(
+            tmp, {"one process": flags}, {"one process": {}},
+            grads=True))["one process"]
+        single_s = time.perf_counter() - t0
+    n_batches = MA_IMAGES // 2
+    want = np.asarray(single["logits"])
+    errors = {"logits": 0.0, "gradient": 0.0}
+    for name, run in ranks.items():
+        expect = {**dict.fromkeys(run["launches"], 0), "K1": 15 * n_batches,
+                  "K2": 3 * n_batches}
+        summary = "Result Summary" in run["stdout"]
+        got = np.asarray(run["logits"])
+        if run["results"] != single["results"] or run["launches"] != expect \
+                or run["heads"] != [6] or single["heads"] != [12] \
+                or not len(run["grads"]) == len(single["grads"]) == n_batches \
+                or summary != (name == "rank 0") \
+                or run["indices"] != single["indices"] \
+                or not np.array_equal(got.argmax(-1), want.argmax(-1)):
+            raise AssertionError(
+                f"model axis, {name}: results {run['results']} against "
+                f"{single['results']}, launches {run['launches']}, heads a "
+                f"K1 launch {run['heads']} (one process {single['heads']}), "
+                f"summary printed: {summary}, top-1 "
+                f"{got.argmax(-1).tolist()} against "
+                f"{want.argmax(-1).tolist()}")
+        if name == "rank 0":
+            errors["logits"] = max(relative_error(g, w)
+                                   for g, w in zip(got, want))
+            errors["gradient"] = max(
+                relative_error(g, w)
+                for g, w in zip(run["grads"], single["grads"]))
+    first, second = ranks.values()
+    same = first["logits"] == second["logits"] and all(
+        torch.equal(a, b) for a, b in zip(first["grads"], second["grads"]))
+    pace = {name: float(np.median(np.diff(run["starts"][1:])))
+            for name, run in {**ranks, "one process": single}.items()}
+    log(f"model axis ({first['model_backend']}, "
+        f"{'both ranks on cuda:0' if cards == 1 else f'{cards} cards'}): "
+        f"results {single['results']} on both ranks and the one process; "
+        f"launches a rank {first['launches']} over {n_batches} batches, "
+        f"every K1 at 6 heads (one process: 12); the two ranks' logits and "
+        f"gradients {'bit for bit' if same else 'DIFFER'}; rank 0 against "
+        f"the one process, largest over the samples and batches relative "
+        f"to the largest element: logits {errors['logits']:.3e}, "
+        f"first-update gradient {errors['gradient']:.3e} (bounds "
+        + (f"{bound['logits']:.3e}, {bound['gradient']:.3e}"
+           if bound else "none: a noise run") + ")")
+    log("model axis: steady s/batch (median past the first batch) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in pace.items())
+        + "; the model group's collectives a batch, host ms "
+        + ", ".join(f"{name} {run['model_ms'] / n_batches:.1f} "
+                    f"({run['model_calls'] / n_batches:.0f} calls)"
+                    for name, run in ranks.items())
+        + f"; the ranks took {ranks_s:.1f} s, the one process "
+        f"{single_s:.1f} s, start and set-up included")
+    if not same or (bound and (errors["logits"] > bound["logits"]
+                               or errors["gradient"] > bound["gradient"])):
+        raise AssertionError(f"model axis: the ranks disagree with each "
+                             f"other or with the one process: {errors}")
+    return {"launches": {name: run["launches"]
+                         for name, run in ranks.items()},
+            "errors": errors, "pace": pace,
+            "model_ms": {name: run["model_ms"] / n_batches
+                         for name, run in ranks.items()}}
+
+
+def serve_ranks(mesh_shape: str, envs: list, port: int) -> list:
+    """`python -m ttl_tpu_torch.serve --test_sets I --sample_batch 2
+    --mesh_shape <mesh_shape> --port <port>` in one process a rank, as
+    `torch.distributed.run` starts it (`envs`: each rank's RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR, MASTER_PORT); returns (process, lines, ready
+    event) for each."""
+    import threading
+    cmd = [sys.executable, "-m", "ttl_tpu_torch.serve", "--test_sets", "I",
+           "--sample_batch", "2", "--mesh_shape", mesh_shape, "--port",
+           str(port)]
+    out = []
+    for env in envs:
+        proc = subprocess.Popen(
+            cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+            env={**os.environ, **env}, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        lines, ready = [], threading.Event()
+
+        def read(proc=proc, lines=lines, ready=ready):
+            for line in proc.stdout:
+                lines.append(line.rstrip())
+                if "serving on" in line:
+                    ready.set()
+            ready.set()
+
+        threading.Thread(target=read, daemon=True).start()
+        out.append((proc, lines, ready))
+    return out
+
+
+def phase_serve_ranks() -> dict:
+    """Serving over two ranks on cuda:0: `python -m ttl_tpu_torch.serve
+    --test_sets I --sample_batch 2 --mesh_shape 2`, then `--mesh_shape
+    1,2`, two processes each (`serve_ranks`); rank 0 serves HTTP, rank 1
+    follows. A burst of 8 PNG POSTs at once answers 8 x 200 with the top-1
+    labels and zero-shot labels of the one-process predictor
+    (`serve.TTLPredictor` in this process, as the one-process server builds
+    it) on the same images, each answer's top-5 probabilities within
+    MODEL_AXIS_BOUND_REL["logits"] of the largest; SIGTERM to rank 0
+    drains, stops rank 1, and both exit 0."""
+    import io
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+    from PIL import Image
+    from ttl_tpu_torch.config import TTLConfig
+    from ttl_tpu_torch.data.classnames import resolve_classnames
+    from ttl_tpu_torch.serve import TTLPredictor
+    rng = np.random.default_rng(SEED + 53)
+    images = [rng.integers(0, 256, SyntheticImages.SIZES[i % 4] + (3,),
+                           dtype=np.uint8) for i in range(8)]
+    bodies = []
+    for img in images:
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG")
+        bodies.append(buf.getvalue())
+    t0 = time.perf_counter()
+    one = TTLPredictor(resolve_classnames("I"), TTLConfig(
+        sample_batch=2, test_sets="I"), device=torch.device("cuda:0"))
+    want = one.predict(images)
+    del one
+    one_s = time.perf_counter() - t0
+    bound = MODEL_AXIS_BOUND_REL["logits"]
+    out = {}
+    for shape in ("2", "1,2"):
+        port, master = int(free_port()), free_port()
+        envs = [{"RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": master}
+                for r in range(2)]
+        start = time.perf_counter()
+        ranks = serve_ranks(shape, envs, port)
+        try:
+            ranks[0][2].wait(600)
+            if not any("serving on" in ln for ln in ranks[0][1]):
+                raise AssertionError(f"serve --mesh_shape {shape} did not "
+                                     "come up:\n" + "\n".join(
+                                         ranks[0][1][-40:] + ranks[1][1][-40:]))
+            ready_s = time.perf_counter() - start
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=8) as ex:
+                results = list(ex.map(lambda b: http(port, "/predict", b),
+                                      bodies))
+            burst_s = time.perf_counter() - t0
+            ranks[0][0].send_signal(signal.SIGTERM)
+            codes = [p.wait(timeout=120) for p, _, _ in ranks]
+        finally:
+            for p, _, _ in ranks:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        err = 0.0
+        for (code, got), ref in zip(results, want):
+            if code != 200 or got["label"] != ref["label"] \
+                    or got["zero_shot_label"] != ref["zero_shot_label"]:
+                raise AssertionError(f"serve --mesh_shape {shape}: answered "
+                                     f"{code} {got} where one process "
+                                     f"answered {ref}")
+            p_got = np.array([t["prob"] for t in got["topk"]])
+            p_want = np.array([t["prob"] for t in ref["topk"]])
+            err = max(err, relative_error(p_got, p_want))
+        drained = any("draining" in ln for ln in ranks[0][1])
+        log(f"serve --mesh_shape {shape} over two ranks on cuda:0: ready in "
+            f"{ready_s:.3f} s, the burst of 8 in {burst_s:.3f} s, the one "
+            f"process's labels and zero-shot labels, top-5 probabilities "
+            f"within {err:.3e} of the largest (bound {bound:.3e}); SIGTERM: "
+            f"exit codes {codes}, rank 0 drained: {drained}; rank 1's last "
+            f"line: {ranks[1][1][-1:]}")
+        if err > bound or codes != [0, 0] or not drained:
+            raise AssertionError(f"serve --mesh_shape {shape} failed")
+        out[shape] = {"ready_s": ready_s, "burst_s": burst_s,
+                      "prob_err": err}
+    log(f"serve over ranks: the one-process predictor took {one_s:.1f} s "
+        f"with its set-up")
+    return out
+
+
+def phase_tools(build_dir) -> dict:
+    """The tools: `tools/torch_quant_fidelity.py --samples 16` at
+    ViT-B/16 (its JSON line: flip rate, top-5 overlap and logit deviation of
+    the int8 prefix at random weights, on the card); and
+    `tools/torch_convert_checkpoint.py` on phase 26's seeded fp16 OpenAI
+    RN50 `.pt`, as a user runs it: every leaf of the `.npz` it writes equals
+    the checkpoint's as `load_checkpoint` reads it, bit for bit."""
+    import importlib.util
+    import tempfile
+    from ttl_tpu_torch.models.convert import load_checkpoint, load_pytree
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "torch_quant_fidelity",
+        os.path.join(root, "tools", "torch_quant_fidelity.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    t0 = time.perf_counter()
+    fidelity = tool.main(["--samples", "16", "--classes", "200"])
+    fidelity_s = time.perf_counter() - t0
+    if fidelity["samples"] != 16 or not 0 <= fidelity["top1_flip_rate"] <= 1:
+        raise AssertionError(f"quant fidelity: {fidelity}")
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], f"{path}/{k}")
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{path}/{i}")
+        else:
+            yield path, np.asarray(tree)
+
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        pt, npz = os.path.join(tmp, "rn50.pt"), os.path.join(tmp, "rn50.npz")
+        torch.save(openai_rn_state_dict(seeded_weights("RN50", SEED + 31)),
+                   pt)
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "tools/torch_convert_checkpoint.py",
+                              pt, "--out", npz], cwd=root,
+                             capture_output=True, text=True, timeout=600)
+        convert_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"convert: {run.stderr[-3000:]}")
+        got = dict(leaves(load_pytree(npz)))
+        want = dict(leaves(load_checkpoint(pt)[0]))
+    same = got.keys() == want.keys() and all(
+        got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+        for k in got)
+    log(f"tools: torch_quant_fidelity at ViT-B/16 over 16 samples "
+        f"{json.dumps(fidelity)} in {fidelity_s:.1f} s; "
+        f"torch_convert_checkpoint on the seeded RN50 .pt: "
+        f"{run.stdout.strip()} in {convert_s:.1f} s, {len(got)} leaves "
+        f"{'bit for bit' if same else 'DIFFER from'} the checkpoint's")
+    if not same:
+        raise AssertionError("convert: the .npz is not the checkpoint")
+    return {"fidelity": fidelity}
 
 
 def main() -> int:
@@ -2466,8 +2833,15 @@ def main() -> int:
         start = time.perf_counter()
         seconds[phase] = (run(), time.perf_counter() - start)
         log(f"phase {phase} took {seconds[phase][1]:.1f} s")
+    for phase, run in ((34, lambda: phase_model_axis(lib.parent)),
+                       (35, phase_serve_ranks),
+                       (36, lambda: phase_tools(lib.parent))):
+        start = time.perf_counter()
+        seconds[phase] = (run(), time.perf_counter() - start)
+        log(f"phase {phase} took {seconds[phase][1]:.1f} s")
     predict_runs, served, bongard_runs = (seconds[p][0] for p in (27, 29, 30))
     profile_run, _, data_parallel = (seconds[p][0] for p in (31, 32, 33))
+    model_axis, served_ranks, tools = (seconds[p][0] for p in (34, 35, 36))
     log(f"new paths: predict {predict_runs['predict']['samples_per_s']:.3f} "
         f"images/s at {100 * predict_runs['predict']['busy_share']:.1f}% "
         f"busy; serve ready in {served['ready_s']:.3f} s, first answer in "
@@ -2478,7 +2852,12 @@ def main() -> int:
         f"--profile {profile_run['samples_per_s']:.3f} samples/s against "
         f"the main path's {main_path['samples_per_s']:.3f}; the data-parallel "
         f"steady s/batch {data_parallel.pop('pace')}; phases 31-33 took "
-        f"{sum(seconds[p][1] for p in (31, 32, 33)):.1f} s")
+        f"{sum(seconds[p][1] for p in (31, 32, 33)):.1f} s; the model axis "
+        f"s/batch {model_axis['pace']}, its collectives' host ms a batch "
+        f"{model_axis['model_ms']}, against one process: "
+        f"{model_axis['errors']}; serve over two ranks {served_ranks}; "
+        f"quant fidelity {tools['fidelity']}; phases 34-36 took "
+        f"{sum(seconds[p][1] for p in (34, 35, 36)):.1f} s")
     paths = {"main path": main_path, "int8 main path": int8_path,
              "zero-shot": zero_shot, "text-LoRA (per_head)": text_path,
              "prompt tuning (heads)": prompt_path, "CoCoOp": cocoop_path,
@@ -2500,6 +2879,8 @@ def main() -> int:
     paths["--profile"] = profile_run
     paths.update({f"data-parallel, {name}": r
                   for name, r in data_parallel.items()})
+    paths.update({f"model axis, {name}": {"launches": launches}
+                  for name, launches in model_axis["launches"].items()})
 
     def by_path(key):
         return {name: r["launches"][key] for name, r in paths.items()}
@@ -2511,7 +2892,7 @@ def main() -> int:
 
     def other_shapes(kind):
         """K1's or K2's results at OTHER_FWD / OTHER_BWD, by shape."""
-        return {f"[{b}, {s}, {w}] {d}": other[(kind, s, d)]
+        return {f"[{b}, {s}, {w}] {d}": other[(kind, s, w, d)]
                 for b, s, _, _, w, d in (OTHER_FWD if kind == "fwd"
                                          else OTHER_BWD)}
 

@@ -6,9 +6,10 @@ tests/test_torch_multiprocess.py.
   ResNet trees, equal to the JAX function's PartitionSpecs on meshes with
   and without a model axis (the RN50 `attnpool/q/w` case of
   tests/test_parallel.py included).
-- `make_mesh`'s shape errors; `shard_params` on a model axis raises naming
-  ROADMAP item 21; `shard_batch` takes the rows JAX's data-axis sharding
-  puts on each device; `replicate`'s checksum sees one changed bit.
+- `make_mesh`'s shape errors; `shard_params` keeps a rank's slice on a
+  model axis (tests/test_torch_tensor_parallel.py runs it); `shard_batch`
+  takes the rows JAX's data-axis sharding puts on each device;
+  `replicate`'s checksum sees one changed bit.
 - `make_count_fn(None)` equal to JAX's `make_count_fn(None)`.
 - The CLI's `--mesh_shape` / `--init_distributed` / `--gpu` checks.
 """
@@ -110,10 +111,15 @@ def test_make_mesh_raises_on_a_shape_that_is_not_the_world(shape, match):
 
 
 def test_shard_params_on_a_model_axis_raises_naming_item_21():
+    """The model axis is ported: the rank keeps its slice, no raise."""
     tree = {"w": torch.ones(2)}
     assert shard_params(tree, port_mesh((1,))) is tree
-    with pytest.raises(NotImplementedError, match="item 21"):
-        shard_params(tree, port_mesh((4, 2)))
+    q = torch.arange(16.0).reshape(1, 2, 8)
+    got = shard_params({"w": tree["w"], "vision": {"layers": {"attn": {
+        "q": {"w": q}}}}}, port_mesh((4, 2), rank=3))
+    assert got["w"] is tree["w"]
+    assert torch.equal(got["vision"]["layers"]["attn"]["q"]["w"],
+                       q[..., 4:])
 
 
 def test_shard_batch_takes_the_rows_jax_puts_on_each_device():
@@ -164,11 +170,10 @@ def test_count_fn_matches_jax():
 
 @pytest.mark.parametrize("argv,error,match", [
     (["--mesh_shape", "2"], ValueError, "torch.distributed.run"),
-    (["--mesh_shape", "4,2"], NotImplementedError, "item 21"),
-    (["--mesh_shape", "1,2"], NotImplementedError, "item 21"),
+    (["--mesh_shape", "4,2"], ValueError, r"\(4, 2\) != 1 process"),
+    (["--mesh_shape", "1,2"], ValueError, "torch.distributed.run"),
     (["--init_distributed", "--gpu", "1"], ValueError, "--gpu"),
-    (["--init_distributed", "--mesh_shape", "2,2"], NotImplementedError,
-     "item 21"),
+    (["--init_distributed", "--mesh_shape", "2,2"], RuntimeError, "CUDA"),
     (["--mesh_shape", "1"], RuntimeError, "CUDA"),
     (["--mesh_shape", "1,1"], RuntimeError, "CUDA"),
     (["--init_distributed", "--mesh_shape", "2"], RuntimeError, "CUDA"),
@@ -226,7 +231,7 @@ def test_predict_makes_its_card_current_before_it_runs(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("shape,error", [((2,), ValueError),
-                                         ((2, 2), NotImplementedError)])
+                                         ((2, 2), ValueError)])
 def test_runner_holds_the_mesh_shape_against_the_world(shape, error):
     cfg = TTLConfig(arch="test-tiny", mesh_shape=shape)
     with pytest.raises(error):

@@ -8,14 +8,22 @@ crc32 of its bytes) handed to the port's `runner.draw_batch`; everything in
 f32 at the `test-tiny` size. Tolerance: 1e-5 relative (and 1e-6 absolute)
 at f32, on the probabilities.
 
-Serving over several cards is not ported: `use_mesh=True`, a config's
-`mesh_shape` and the CLI's `--mesh` / `--mesh_shape` raise
-NotImplementedError naming ROADMAP item 21, where the JAX file tests the
-mesh predictor.
+Serving over several ranks (the port of tests/test_serve.py's mesh
+cases): two gloo ranks started with `subprocess`, on mesh (2,) and (1, 2),
+rank 0 serving HTTP and rank 1 following, answer a burst as the
+one-process predictor does (labels equal, probabilities within RTOL/ATOL),
+and SIGTERM to rank 0 drains and stops both, each exiting 0. In one
+process `use_mesh=True` is a mesh of that process; a two-rank shape raises
+the world check's ValueError.
 """
 import io
 import json
+import os
+import signal
 import socket
+import subprocess
+import sys
+import textwrap
 import threading
 import time
 import urllib.error
@@ -29,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
-import test_torch_threads  # noqa: F401  (torch threads per worker)
+import test_torch_threads
 from test_torch_image import jax_draws, stack_draws
 
 from ttl_tpu import runner as jrunner
@@ -309,17 +317,48 @@ def test_predictor_validates_modes(cfg_kw, match):
 
 
 @pytest.mark.parametrize("how", ["use_mesh", "mesh_shape"])
-def test_mesh_serving_raises_not_implemented(how):
-    kw = {"use_mesh": True} if how == "use_mesh" else {}
-    cfg = TTLConfig(**KW, mesh_shape=(4, 2) if how == "mesh_shape" else None)
-    with pytest.raises(NotImplementedError, match="item 21"):
+def test_mesh_serving_raises_not_implemented(predictor, how):
+    """Mesh serving is ported (name kept): in one process `use_mesh` is a
+    mesh of that process and predicts as the plain predictor; a two-rank
+    shape raises ValueError."""
+    if how == "mesh_shape":
+        with pytest.raises(ValueError, match=r"\(4, 2\) != 1 process"):
+            TTLPredictor(CLASSES, TTLConfig(**KW, mesh_shape=(4, 2)),
+                         device="cpu", params={}, clip_cfg=TEST_TINY,
+                         warmup=False)
+        return
+    mesh_pred = TTLPredictor(CLASSES, CFG, device="cpu", params=_params(),
+                             clip_cfg=TEST_TINY, warmup=False, use_mesh=True)
+    assert mesh_pred.mesh.shape == {"data": 1}
+    imgs = [_image(i, (100, 120, 3)) for i in range(3)]
+    assert mesh_pred.predict(imgs) == predictor.predict(imgs)
+
+
+def test_mesh_predictor_needs_a_multiple_of_the_data_axis(monkeypatch):
+    """JAX's ValueError where sample_batch does not split over the data
+    axis, before any weight is read."""
+    from ttl_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+    monkeypatch.setattr(tserve, "make_mesh", lambda shape, device: Mesh(
+        {DATA_AXIS: 2}, 0, 2, torch.device("cpu")))
+    cfg = TTLConfig(**{**KW, "sample_batch": 3})
+    with pytest.raises(ValueError) as got:
         TTLPredictor(CLASSES, cfg, device="cpu", params={},
-                     clip_cfg=TEST_TINY, warmup=False, **kw)
+                     clip_cfg=TEST_TINY, warmup=False, use_mesh=True)
+    assert str(got.value) == ("sample_batch (3) must be a multiple of the "
+                              "data axis (2)")
 
 
-@pytest.mark.parametrize("flags", [["--mesh"], ["--mesh_shape", "4,2"]])
-def test_cli_mesh_flags_raise_not_implemented(flags):
-    with pytest.raises(NotImplementedError, match="item 21"):
+@pytest.mark.parametrize("flags,error,match", [
+    (["--mesh"], RuntimeError, "CUDA"),
+    (["--mesh_shape", "4,2"], ValueError, "torch.distributed.run")])
+def test_cli_mesh_flags_raise_not_implemented(monkeypatch, flags, error,
+                                              match):
+    """Ported (name kept): outside torch.distributed.run `--mesh` is the
+    one-process server, which needs the card; a two-rank shape raises the
+    world check's ValueError before the card is touched."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(error, match=match):
         tserve.main(["--test_sets", "eurosat", *flags])
 
 
@@ -362,3 +401,90 @@ def test_predictor_matches_jax(monkeypatch):
         np.testing.assert_allclose([t["prob"] for t in g["topk"]],
                                    [t["prob"] for t in w["topk"]],
                                    rtol=RTOL, atol=ATOL)
+
+
+SERVE_RANK = textwrap.dedent("""
+    import json, sys
+    import torch
+    import torch.distributed as dist
+    from ttl_tpu_torch.config import TTLConfig
+    from ttl_tpu_torch.models.clip import init_clip_params
+    from ttl_tpu_torch.models.zoo import TEST_TINY
+    from ttl_tpu_torch.serve import TTLPredictor, serve
+
+    dist.init_process_group("gloo", init_method="env://")
+    kw, classes, shape, port = json.loads(sys.argv[1])
+    params = init_clip_params(TEST_TINY, torch.Generator().manual_seed(0),
+                              device="cpu", param_dtype=torch.float32)
+    pred = TTLPredictor(classes, TTLConfig(**kw, mesh_shape=tuple(shape)),
+                        device="cpu", params=params, clip_cfg=TEST_TINY,
+                        use_mesh=True)
+    if dist.get_rank() == 0:
+        serve(pred, "127.0.0.1", port)
+    else:
+        pred.follow()
+    dist.destroy_process_group()
+    print("RESULT:" + json.dumps({"mesh": pred.mesh.shape}), flush=True)
+""")
+
+
+@pytest.mark.parametrize("shape", [(2,), (1, 2)])
+def test_http_serve_over_two_ranks_answers_as_one_process(predictor,
+                                                          tmp_path, shape):
+    """The port of tests/test_serve.py's mesh cases: rank 0 serves, rank 1
+    follows; a burst of 6 PNGs (sample_batch 2: one row a rank on (2,), both
+    rows on each rank of (1, 2)) gets the one-process predictor's labels
+    and probabilities; SIGTERM drains and both ranks exit 0."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        master = s.getsockname()[1]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "rank.py"
+    script.write_text(SERVE_RANK)
+    env = {**test_torch_threads.subprocess_env(), "WORLD_SIZE": "2",
+           "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(master)}
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    argv = [sys.executable, str(script),
+            json.dumps([KW, CLASSES, list(shape), port])]
+    procs = [subprocess.Popen(argv, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=repo,
+                              env={**env, "RANK": str(r)}) for r in range(2)]
+    try:
+        for _ in range(600):
+            assert all(p.poll() is None for p in procs), \
+                procs[0].communicate()[1][-3000:]
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/healthz", timeout=1) as r:
+                    assert r.read() == b"ok"
+                break
+            except OSError:
+                time.sleep(0.1)
+        imgs = [_image(40 + i, (70 + 4 * i, 90, 3)) for i in range(6)]
+        with ThreadPoolExecutor(len(imgs)) as ex:
+            answers = list(ex.map(lambda img: _post(
+                port, _encoded(img, "PNG")), imgs))
+        procs[0].send_signal(signal.SIGTERM)
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert "RESULT:" in out
+    want = predictor.predict(imgs)
+    for (code, got, _), ref in zip(answers, want):
+        assert code == 200
+        assert got["label"] == ref["label"]
+        assert got["zero_shot_label"] == ref["zero_shot_label"]
+        assert [t["label"] for t in got["topk"]] == \
+            [t["label"] for t in ref["topk"]]
+        np.testing.assert_allclose([t["prob"] for t in got["topk"]],
+                                   [t["prob"] for t in ref["topk"]],
+                                   rtol=RTOL, atol=ATOL)
+

@@ -187,12 +187,14 @@ def test_cli_refuses_to_run_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh_shape", "2,2"],     # a model axis (the data axis is covered)
+    ["--mesh_shape", "2,2"],     # a model axis: four processes, not one
 ])
 def test_uncovered_flags_raise(flags):
+    """Every flag is covered; a two-rank mesh in one process raises the
+    world check's ValueError before any work."""
     args = tcli.build_parser().parse_args(["data", *flags])
     cfg = tcli.config_from_args(args)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match=r"\(2, 2\) != 1 process"):
         trunner.run(cfg, device="cpu", datasets={})
 
 

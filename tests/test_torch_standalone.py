@@ -42,6 +42,7 @@ import ttl_tpu_torch.predict, ttl_tpu_torch.serve
 import ttl_tpu_torch.adapt.bongard, ttl_tpu_torch.data.bongard
 import ttl_tpu_torch.utils.profiling, ttl_tpu_torch.utils.analysis
 import ttl_tpu_torch.parallel.mesh, ttl_tpu_torch.parallel.eval
+import ttl_tpu_torch.parallel.tensor
 from ttl_tpu_torch.config import TTLConfig
 from ttl_tpu_torch.data.views import ArrayDataset
 from ttl_tpu_torch.models.clip import CLIPConfig
@@ -84,8 +85,8 @@ assert not foreign, foreign
 assert {"ttl_tpu_torch.predict", "ttl_tpu_torch.serve",
         "ttl_tpu_torch.adapt.bongard", "ttl_tpu_torch.data.bongard",
         "ttl_tpu_torch.utils.profiling", "ttl_tpu_torch.utils.analysis",
-        "ttl_tpu_torch.parallel.mesh",
-        "ttl_tpu_torch.parallel.eval"} <= set(sys.modules)
+        "ttl_tpu_torch.parallel.mesh", "ttl_tpu_torch.parallel.eval",
+        "ttl_tpu_torch.parallel.tensor"} <= set(sys.modules)
 print("STANDALONE OK")
 """
 
@@ -103,7 +104,9 @@ def test_no_source_file_of_the_port_imports_jax_or_the_jax_package():
     from pathlib import Path
     root = Path(tconfig.__file__).resolve().parent
     pattern = re.compile(r"^\s*(from|import)\s+(jax|ttl_tpu)(\.|\s|$)", re.M)
-    files = list(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+    tools = sorted((root.parent / "tools").glob("torch_*.py"))
+    assert len(tools) >= 4
+    files = list(root.rglob("*.py")) + [root.parent / "chip_smoke.py"] + tools
     assert len(files) > 20
     for path in files:
         assert not pattern.search(path.read_text()), path

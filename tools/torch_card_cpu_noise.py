@@ -20,10 +20,17 @@ With `--views`, it measures instead the AugMix views
 of values that differ by more than 1/255 between card and CPU, the largest
 difference among the others, and the largest of each over the seeds.
 
+With `--model_axis`, it measures instead the model axis against one
+process, both on the card: `chip_smoke.phase_model_axis` over the images
+made from each seed, with no bound, and per seed and over the seeds the
+largest difference of rank 0's logits (each sample) and first-update
+gradient (each batch) from the one process's, relative to the largest
+element: the source of chip_smoke.MODEL_AXIS_BOUND_REL.
+
 Run from the root of the repository, on a machine with the card:
 
     python3 tools/torch_card_cpu_noise.py [--paths main prompt ...]
-        [--seeds 1 8] [--views]
+        [--seeds 1 8] [--views | --model_axis]
 """
 from __future__ import annotations
 
@@ -70,6 +77,22 @@ def views(seeds) -> None:
            f"largest difference elsewhere {worst['elsewhere']:.4e}")
 
 
+def model_axis(seeds) -> None:
+    """Phase 34, rank 0 against one process, per image seed."""
+    from ttl_tpu_torch.ops import _build
+    build_dir = _build.build().parent
+    worst = {"logits": 0.0, "gradient": 0.0}
+    for seed in range(seeds[0], seeds[1] + 1):
+        errors = cs.phase_model_axis(build_dir, seed=seed, bound={})["errors"]
+        cs.log(f"model axis, seed {seed}: logits {errors['logits']:.4e}, "
+               f"first-update gradient {errors['gradient']:.4e} of the "
+               f"largest element")
+        worst = {k: max(v, errors[k]) for k, v in worst.items()}
+    cs.log(f"model axis over seeds {seeds[0]}-{seeds[1]}: largest logits "
+           f"{worst['logits']:.4e}, gradient {worst['gradient']:.4e} "
+           f"(bounds in chip_smoke.py {cs.MODEL_AXIS_BOUND_REL})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--paths", choices=sorted(PATHS), nargs="+",
@@ -78,6 +101,9 @@ def main() -> int:
                     metavar=("FIRST", "LAST"))
     ap.add_argument("--views", action="store_true",
                     help="measure the AugMix views instead of the paths")
+    ap.add_argument("--model_axis", action="store_true",
+                    help="measure the model axis against one process "
+                         "instead of the paths")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -88,6 +114,9 @@ def main() -> int:
     cs.log(f"{torch.cuda.get_device_name(0)}")
     if args.views:
         views(args.seeds)
+        return 0
+    if args.model_axis:
+        model_axis(args.seeds)
         return 0
     for path in args.paths:
         flags, route, bound_key = PATHS[path]

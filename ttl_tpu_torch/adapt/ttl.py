@@ -40,6 +40,13 @@ Every call starts from the same initial state and a fresh optimizer state:
 that is the episodic reset. The number of updates is
 `effective_update_steps` (tta_steps**2 on the DeYO path, tta_steps on the
 TPT paths, as in the reference).
+
+Every step factory takes the `mesh` its parameters were split for
+(`parallel/mesh.py::shard_params`): its step runs the towers over the
+mesh's model group (`parallel/tensor.py`). The LoRA steps also split the
+frozen classifier's classes over the model axis where `n_classes` divides
+evenly, as the JAX package's do: a rank scores its C/m classes and the
+logits are gathered before the loss and the top-k.
 """
 from __future__ import annotations
 
@@ -58,7 +65,7 @@ from ..ops.entropy import deyo_loss, select_confident, tpt_loss
 from ..ops.image import (Draws, preprocess_center, render_views,
                          resize_bilinear, sample_generator)
 from ..ops.lora import lora_scale
-from ..parallel.mesh import NOT_PORTED_MODEL_AXIS
+from ..parallel import tensor as tp
 
 # torch.optim.AdamW defaults, as the reference and the JAX package use them
 ADAMW_BETAS = (0.9, 0.999)
@@ -83,12 +90,26 @@ def compute_dtype(cfg: TTLConfig) -> torch.dtype:
 
 
 def check_supported(cfg: TTLConfig) -> None:
-    """Raise NotImplementedError for what this port does not cover yet,
-    naming the ROADMAP (Queue 1) item that brings it."""
+    """Raise before any work for a config the port refuses: unknown AugMix
+    ops."""
     check_aug_ops(cfg.aug_ops)
-    if cfg.mesh_shape is not None and len(cfg.mesh_shape) > 1 \
-            and cfg.mesh_shape[1] > 1:
-        raise NotImplementedError(NOT_PORTED_MODEL_AXIS)
+
+
+def model_of(mesh) -> Optional[tp.ModelGroup]:
+    """The model group of a mesh (None: no mesh, or no model axis)."""
+    return None if mesh is None else mesh.model
+
+
+def over_mesh(mesh, fn):
+    """fn, run over the mesh's model group."""
+    model = model_of(mesh)
+    if model is None:
+        return fn
+
+    def run(*args, **kw):
+        with tp.over(model):
+            return fn(*args, **kw)
+    return run
 
 
 # ------------------------------------------------------ PLPD counterfactuals
@@ -204,14 +225,20 @@ def _selection_k(cfg: TTLConfig) -> int:
 
 
 def _classify(params, feats: torch.Tensor, text_cls: torch.Tensor,
-              n_samples: int) -> torch.Tensor:
+              n_samples: int,
+              classes: Optional[tp.ModelGroup] = None) -> torch.Tensor:
     """exp(logit_scale) * feats @ text_cls^T per sample: feats [S*V', P]
     normalized image features; text_cls [C, P], one classifier for every
     sample, or [S, C, P], one a sample (the text-side paths' class
-    features, the Bongard prototypes) -> [S, V', C]."""
+    features, the Bongard prototypes) -> [S, V', C]. With `classes`,
+    text_cls [C/m, P] is the rank's part of the class axis, and the logits
+    are gathered over that model group."""
     x = torch.exp(params["logit_scale"]) * feats
     if text_cls.dim() == 2:
-        return (x @ text_cls.T).reshape(n_samples, -1, text_cls.shape[0])
+        if classes is not None:
+            x = tp.copy_to_model(x, classes)
+        out = (x @ text_cls.T).reshape(n_samples, -1, text_cls.shape[0])
+        return out if classes is None else tp.gather_classes(out, classes)
     return torch.matmul(x.unflatten(0, (n_samples, -1)),
                         text_cls.transpose(-1, -2))
 
@@ -232,7 +259,8 @@ def truncate_tokens(tokens) -> np.ndarray:
 
 
 def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
-                        tokens=None, zero_shot_aux: bool = False):
+                        tokens=None, zero_shot_aux: bool = False, mesh=None,
+                        n_classes: Optional[int] = None):
     """Return f(params, text_cls, adapters0, views [S, V, 3, H, W],
     plpd_perm=None) -> AdaptResult for S samples adapted independently.
     `text_cls` is [C, P], or [S, C, P] for one classifier a sample (image
@@ -244,7 +272,11 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
     With `zero_shot_aux` the result's `zero_shot_logits` are the clean
     view's logits without adapters, from the cached frozen state of view 0:
     one more single-view pass of the adapted part, without gradient. Without
-    it they are None and nothing more runs."""
+    it they are None and nothing more runs.
+
+    `mesh`: the mesh `params` were split for; on a model axis a [C, P]
+    `text_cls` of `n_classes` rows, n_classes divisible by the axis, is
+    split by classes (image mode)."""
     check_supported(cfg)
     if cfg.lora_encoder == "prompt":
         raise ValueError("--lora_encoder prompt adapts no LoRA: use "
@@ -257,6 +289,10 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
     k_sel = _selection_k(cfg)
     vcfg = clip_cfg.vision
     plpd_on = plpd_counterfactual(cfg)
+    model = model_of(mesh)
+    classes = model if (model is not None and on_image
+                        and n_classes is not None
+                        and n_classes % model.size == 0) else None
     if not on_image:
         if tokens is None:
             raise ValueError("--lora_encoder text needs the class-prompt "
@@ -280,7 +316,8 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
             vf = vision_from_hidden(params["vision"], frozen, vcfg,
                                     adapters=_to_tree(leaves),
                                     adapter_window=window, lora_scale=scale)
-            return _classify(params, l2_normalize(vf), text_cls, n_samples)
+            return _classify(params, l2_normalize(vf), text_cls, n_samples,
+                             classes)
         if txt is None:
             txt = text_side(params, leaves)
         return _class_logits(params, frozen, txt, n_samples)
@@ -323,7 +360,8 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
             if on_image:
                 vf = vision_from_hidden(params["vision"], clean, vcfg,
                                         adapter_window=window)
-                return _classify(params, l2_normalize(vf), text_cls, s)[:, 0]
+                return _classify(params, l2_normalize(vf), text_cls, s,
+                                 classes)[:, 0]
             txt = l2_normalize(text_side(params, None))
             return _classify(params, clean, txt, s)[:, 0]
 
@@ -339,6 +377,12 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
             raise ValueError("--filter_plpd with aug_type "
                              f"{cfg.aug_type!r} needs the step's plpd_perm "
                              "draws (draw_plpd_perms)")
+        if classes is not None and text_cls.dim() == 2:
+            if text_cls.shape[0] != n_classes:
+                raise ValueError(f"text_cls has {text_cls.shape[0]} classes, "
+                                 f"the step was built for {n_classes}")
+            n = n_classes // classes.size
+            text_cls = text_cls[classes.index * n:(classes.index + 1) * n]
         with torch.no_grad():
             frozen = frozen_state(params, views)
         leaves = [adapters0[m][ab].expand(s, *adapters0[m][ab].shape)
@@ -391,18 +435,20 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
             zero_shot_logits=(zero_shot(params, text_cls, frozen, s, v)
                               if zero_shot_aux else None))
 
-    return step
+    return over_mesh(mesh, step)
 
 
 def make_fused_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *, tokens=None,
-                      zero_shot_aux: bool = False):
+                      zero_shot_aux: bool = False, mesh=None,
+                      n_classes: Optional[int] = None):
     """View rendering + the batched step: f(params, text_cls, adapters0,
     canvases [S, C, C, 3] uint8, hs [S], ws [S], draws) -> AdaptResult.
     `draws` are the host-made random draws (`runner.sample_draws`: the
     views' of ops.image.draw_batch, and under --filter_plpd `plpd_perm`).
-    `zero_shot_aux` as in `make_batched_ttl_fn`."""
+    `zero_shot_aux`, `mesh` and `n_classes` as in `make_batched_ttl_fn`."""
     batched = make_batched_ttl_fn(clip_cfg, cfg, tokens=tokens,
-                                  zero_shot_aux=zero_shot_aux)
+                                  zero_shot_aux=zero_shot_aux, mesh=mesh,
+                                  n_classes=n_classes)
     cd = compute_dtype(cfg)
 
     def fused(params, text_cls, adapters0, canvases, hs, ws,
@@ -417,7 +463,7 @@ def make_fused_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *, tokens=None,
     return fused
 
 
-def make_center_encoder(clip_cfg: CLIPConfig, cfg: TTLConfig):
+def make_center_encoder(clip_cfg: CLIPConfig, cfg: TTLConfig, mesh=None):
     """f(params, canvases [N, C, C, 3] uint8, hs [N], ws [N]) -> [N, P]
     L2-normalized frozen features of the deterministic center view."""
     cd = compute_dtype(cfg)
@@ -429,14 +475,15 @@ def make_center_encoder(clip_cfg: CLIPConfig, cfg: TTLConfig):
         return l2_normalize(encode_image(params["vision"], views,
                                          clip_cfg.vision, compute_dtype=cd))
 
-    return encode
+    return over_mesh(mesh, encode)
 
 
-def make_fused_zeroshot_fn(clip_cfg: CLIPConfig, cfg: TTLConfig):
+def make_fused_zeroshot_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, mesh=None):
     """Center view + zero-shot classification (tta_steps 0):
     f(params, text_cls [C, P], canvases [S, C, C, 3] uint8, hs [S], ws [S])
-    -> logits [S, C]. It consumes no randomness."""
-    encode = make_center_encoder(clip_cfg, cfg)
+    -> logits [S, C]. It consumes no randomness. The classifier is whole on
+    every rank of a model axis, as in the JAX package's zero-shot step."""
+    encode = make_center_encoder(clip_cfg, cfg, mesh=mesh)
 
     @torch.no_grad()
     def zeroshot(params, text_cls, canvases, hs, ws) -> torch.Tensor:
@@ -448,7 +495,7 @@ def make_fused_zeroshot_fn(clip_cfg: CLIPConfig, cfg: TTLConfig):
 
 # ------------------------------------------------------------ prompt tuning
 
-def make_tpt_adapt_fn(clip_cfg: CLIPConfig, cfg: TTLConfig):
+def make_tpt_adapt_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, mesh=None):
     """TPT: tune the prompt learner's context vectors (and its learned class
     tokens, if it has them) instead of LoRA. Returns f(params, pl_state,
     views [S, V, 3, H, W]) -> (AdaptResult, adapted ctx [S, n_ctx, d]);
@@ -503,13 +550,13 @@ def make_tpt_adapt_fn(clip_cfg: CLIPConfig, cfg: TTLConfig):
         return AdaptResult(logits=out, losses=losses, adapters={},
                            zero_shot_logits=logits0[:, 0]), leaves[0]
 
-    return adapt
+    return over_mesh(mesh, adapt)
 
 
-def make_fused_tpt_fn(clip_cfg: CLIPConfig, cfg: TTLConfig):
+def make_fused_tpt_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, mesh=None):
     """View rendering + prompt tuning: f(params, pl_state, canvases, hs, ws,
     draws) -> (AdaptResult, adapted ctx [S, n_ctx, d])."""
-    adapt = make_tpt_adapt_fn(clip_cfg, cfg)
+    adapt = make_tpt_adapt_fn(clip_cfg, cfg, mesh=mesh)
     cd = compute_dtype(cfg)
 
     def fused(params, pl_state, canvases, hs, ws, draws: Draws):
@@ -522,13 +569,13 @@ def make_fused_tpt_fn(clip_cfg: CLIPConfig, cfg: TTLConfig):
     return fused
 
 
-def make_fused_cocoop_fn(clip_cfg: CLIPConfig, cfg: TTLConfig):
+def make_fused_cocoop_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, mesh=None):
     """View rendering + CoCoOp ctx adaptation (`--cocoop`): f(params,
     co_state, canvases, hs, ws, draws) -> CoCoOpResult with a leading
     sample axis."""
     from .cocoop import make_cocoop_adapt_fn
     check_supported(cfg)
-    adapt = make_cocoop_adapt_fn(clip_cfg, cfg)
+    adapt = over_mesh(mesh, make_cocoop_adapt_fn(clip_cfg, cfg))
     cd = compute_dtype(cfg)
 
     def fused(params, co_state, canvases, hs, ws, draws: Draws):

@@ -8,9 +8,11 @@ the CPU. `--profile DIR` traces the run with torch.profiler into DIR
 operations. `--init_distributed` joins the process group that
 `python -m torch.distributed.run` describes in the environment (RANK,
 WORLD_SIZE, MASTER_ADDR, MASTER_PORT), over gloo, and the rank runs on
-`cuda:{LOCAL_RANK}`: N cards take N processes. A model axis in
-`--mesh_shape` is not covered yet and raises NotImplementedError naming its
-ROADMAP item.
+`cuda:{LOCAL_RANK}`: N cards take N processes. `--mesh_shape d,m` lays
+them out as JAX's (data, model) mesh: each model group of m ranks splits
+the towers' heads and MLP columns (`parallel/`); without
+`--init_distributed` any shape but 1 raises ValueError before the card is
+touched.
 """
 from __future__ import annotations
 
@@ -139,9 +141,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_samples", default=None, type=int,
                    help="cap samples per dataset (smoke runs)")
     p.add_argument("--mesh_shape", type=list_of_ints, default=None,
-                   help="process mesh, N (data) or N,1; its product is the "
-                        "number of processes (default: all on the data "
-                        "axis); a model axis (N,M with M > 1) is not ported")
+                   help="process mesh, N (data) or N,M (data, model); its "
+                        "product is the number of processes (default: all "
+                        "on the data axis); a model axis of M splits every "
+                        "transformer layer's heads and MLP over M ranks")
     p.add_argument("--profile", default=None, type=str, metavar="DIR",
                    help="trace the run with torch.profiler into DIR and "
                         "print the top device ops")

@@ -39,6 +39,18 @@ input that a gradient would flow through raise.
 `encode_image` dispatches a ResNet tower (`models/resnet.py`) to
 `resnet_features`, and `init_clip_params` draws one where the config asks
 for it.
+
+On a model axis (`parallel/mesh.py::shard_params`) a layer's weights are
+the rank's slice: q/k/v and fc1 its columns, o and fc2 its rows. A layer
+sees that from o's rows and runs its heads // m heads (K1/K2 at the rank's
+head count); the input of its column-split products goes through
+`copy_to_model` (the gradient summed over the group), and the partial
+products of o and fc2 are summed over the group in f32 (`reduce_from_model`)
+and rounded once before the bias is added once, as `linear` rounds and adds
+it on one card. LoRA adapters stay whole: a rank's q/v delta takes B's
+columns of its heads, and A and B enter through `copy_to_model`, so their
+gradients are the whole tower's on every rank. The int8 prefix is not
+split: `encoder_layer_q` runs it whole on every rank.
 """
 from __future__ import annotations
 
@@ -53,6 +65,7 @@ import torch.utils.checkpoint
 from ..ops.attention import attention, env_choice, fused_mode
 from ..ops.ln_matmul import ln_matmul
 from ..ops.quant import linear_q
+from ..parallel import tensor as tp
 from .resnet import ResNetVisionConfig, init_resnet_params, resnet_features
 
 Params = Dict[str, Any]
@@ -163,7 +176,7 @@ def _lora_delta(h: torch.Tensor, ad: Params, scale: float) -> torch.Tensor:
         out = torch.matmul(scale * mm_f32(hh, a), b)
     else:
         out = scale * torch.matmul(mm_f32(hh, a.to(h.dtype)), b)
-    return out.reshape(h.shape)
+    return out.reshape(*h.shape[:-1], b.shape[-1])
 
 
 def fuse_qkv_params(tower: Params) -> Params:
@@ -189,6 +202,43 @@ def _ln_linear(x: torch.Tensor, ln: Params, lin: Params,
     return ln_matmul(x, ln["scale"], ln["bias"], lin["w"], lin["b"], eps)
 
 
+def _model_split(p: Params, x: torch.Tensor,
+                 heads: int) -> Tuple[Optional[tp.ModelGroup], int]:
+    """(the step's model group, the rank's head count) for a layer whose
+    weights are a rank's slice (o's input rows fewer than the width);
+    (None, heads) for a whole layer."""
+    rows, width = p["attn"]["o"]["w"].shape[-2], x.shape[-1]
+    if rows == width:
+        return None, heads
+    if heads * rows % width:
+        raise ValueError(f"{heads} heads do not split over a model axis "
+                         f"of {width // rows}")
+    return tp.active(), heads * rows // width
+
+
+def _out_linear(x: torch.Tensor, p: Params,
+                mg: Optional[tp.ModelGroup]) -> torch.Tensor:
+    """linear(x, p) for o and fc2. On a model group x and w's rows are the
+    rank's: the partial product, in f32, is summed over the group, rounded
+    once to x's dtype, and the bias added once."""
+    if mg is None:
+        return linear(x, p)
+    y = tp.reduce_from_model(mm_f32(x, p["w"].to(x.dtype)), mg)
+    return y.to(x.dtype) + p["b"].to(x.dtype)
+
+
+def _lora_columns(lora: Params, mg: tp.ModelGroup) -> Params:
+    """Whole adapters on a rank of a model group: A, and B's columns of the
+    rank's heads, each through `copy_to_model`."""
+    out = {}
+    for name, ad in lora.items():
+        b = tp.copy_to_model(ad["B"], mg)
+        n = b.shape[-1] // mg.size
+        out[name] = {"A": tp.copy_to_model(ad["A"], mg),
+                     "B": b[..., mg.index * n:(mg.index + 1) * n]}
+    return out
+
+
 def _encoder_layer_fused_ln(p: Params, x: torch.Tensor, *, heads: int,
                             eps: float, causal: bool,
                             seq_len: Optional[int]) -> torch.Tensor:
@@ -198,14 +248,16 @@ def _encoder_layer_fused_ln(p: Params, x: torch.Tensor, *, heads: int,
         raise ValueError("fused_ln is forward only: run the layer under "
                          "torch.no_grad() or on an input that needs no "
                          "gradient")
+    mg, heads = _model_split(p, x, heads)
     if "qkv" in p["attn"]:
         q, k, v = _split_qkv(_ln_linear(x, p["ln1"], p["attn"]["qkv"], eps))
     else:
         q, k, v = (_ln_linear(x, p["ln1"], p["attn"][name], eps)
                    for name in "qkv")
-    x = x + linear(attention(q, k, v, heads, causal, seq_len), p["attn"]["o"])
+    x = x + _out_linear(attention(q, k, v, heads, causal, seq_len),
+                        p["attn"]["o"], mg)
     fc1 = _ln_linear(x, p["ln2"], p["mlp"]["fc1"], eps)
-    return x + linear(quick_gelu(fc1), p["mlp"]["fc2"])
+    return x + _out_linear(quick_gelu(fc1), p["mlp"]["fc2"], mg)
 
 
 def encoder_layer(p: Params, x: torch.Tensor, *, heads: int, eps: float,
@@ -223,7 +275,12 @@ def encoder_layer(p: Params, x: torch.Tensor, *, heads: int, eps: float,
                              "fused layernorm + linear has no backward")
         return _encoder_layer_fused_ln(p, x, heads=heads, eps=eps,
                                        causal=causal, seq_len=seq_len)
+    mg, heads = _model_split(p, x, heads)
     h = layer_norm(x, p["ln1"], eps)
+    if mg is not None:
+        h = tp.copy_to_model(h, mg)
+        if lora is not None:
+            lora = _lora_columns(lora, mg)
     if "qkv" in p["attn"]:
         q, k, v = _split_qkv(linear(h, p["attn"]["qkv"]))
     else:
@@ -234,9 +291,12 @@ def encoder_layer(p: Params, x: torch.Tensor, *, heads: int, eps: float,
         q = q + _lora_delta(h, lora["q"], lora_scale).to(q.dtype)
         v = v + _lora_delta(h, lora["v"], lora_scale).to(v.dtype)
     a = attention(q, k, v, heads, causal, seq_len)
-    x = x + linear(a, p["attn"]["o"])
+    x = x + _out_linear(a, p["attn"]["o"], mg)
     h = layer_norm(x, p["ln2"], eps)
-    return x + linear(quick_gelu(linear(h, p["mlp"]["fc1"])), p["mlp"]["fc2"])
+    if mg is not None:
+        h = tp.copy_to_model(h, mg)
+    return x + _out_linear(quick_gelu(linear(h, p["mlp"]["fc1"])),
+                           p["mlp"]["fc2"], mg)
 
 
 def encoder_layer_q(pq: Params, x: torch.Tensor, *, heads: int, eps: float,

@@ -12,39 +12,50 @@ single-GPU; the JAX package scales over a device mesh:
 
 Here the mesh is the world of processes, one process per card, as
 `torch.distributed` runs them: process `rank` of `world` drives
-`cuda:{LOCAL_RANK}`. Only the data axis runs; `param_spec` keeps the JAX
-package's rules for the model axis, and `shard_params` on a model axis
-larger than 1 raises (ROADMAP Queue 1, item 21). Every rank holds the whole
-parameter tree, built from the same seed or file; `replicate` checks that
-they agree.
+`cuda:{LOCAL_RANK}`. Ranks lie as JAX reshapes its devices into
+(data, model): rank r is at data index r // m and model index r % m, so a
+model group is m consecutive ranks. Every rank builds the whole parameter
+tree from the same seed or file; `replicate` checks that they agree, and on
+a model axis `shard_params` keeps the rank's slice by `param_spec`
+(`parallel/tensor.py` runs the collectives the slices need).
+
+Collective backends, by one rule: a model group whose ranks drive distinct
+cards runs NCCL; one whose ranks share a card (NCCL refuses it: the one-card
+smoke) or run on the CPU runs gloo, CUDA tensors staged through the host.
+The data groups carry the counts and logits on host tensors over gloo.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import os
-from typing import Dict, Optional, Tuple
+import socket
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from .tensor import ModelGroup
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-
-NOT_PORTED_MODEL_AXIS = (
-    "a model axis larger than 1 (--mesh_shape d,m with m > 1) is not ported "
-    "to ttl_tpu_torch yet (ROADMAP Queue 1, item 21); the port shards the "
-    "data axis only: --mesh_shape N or N,1")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The axis sizes, this process's rank in the world of processes and
-    the device it drives."""
+    """The axis sizes, this process's rank in the world of processes, the
+    device it drives, and on a model axis its data group (the ranks of its
+    model index; None: the whole world) and its model group."""
     shape: Dict[str, int]
     rank: int
     world: int
     device: torch.device
+    data_group: Any = None
+    model: Optional[ModelGroup] = None
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.shape.get(MODEL_AXIS, 1)
 
 
 def world_and_rank() -> Tuple[int, int]:
@@ -82,8 +93,44 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
     check_mesh_shape(shape, world)
     if device is None:
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
-    return Mesh(dict(zip((DATA_AXIS, MODEL_AXIS), shape)), rank, world,
-                torch.device(device))
+    device = torch.device(device)
+    axes = dict(zip((DATA_AXIS, MODEL_AXIS), shape))
+    m = axes.get(MODEL_AXIS, 1)
+    if m == 1:
+        return Mesh(axes, rank, world, device)
+    data_group, model = _groups(axes[DATA_AXIS], m, rank, device)
+    return Mesh(axes, rank, world, device, data_group, model)
+
+
+def _groups(d: int, m: int, rank: int, device: torch.device):
+    """(this rank's data group, its ModelGroup). Every rank creates every
+    group, in the same order, as `new_group` requires; a model group runs
+    NCCL where its ranks drive distinct cards, else gloo."""
+    where = [None] * (d * m)
+    dist.all_gather_object(where, (socket.gethostname(), device.type,
+                                   device.index))
+    model_ranks = [list(range(i * m, (i + 1) * m)) for i in range(d)]
+    backends = ["nccl" if all(where[r][1] == "cuda" for r in ranks)
+                and len({where[r] for r in ranks}) == m else "gloo"
+                for ranks in model_ranks]
+    if rank == 0:
+        shared = "" if backends[0] == "nccl" else (
+            " (ranks share a card or run on the CPU: NCCL refuses a card "
+            "shared by ranks)")
+        print(f"model axis: {d} group(s) of {m} ranks {model_ranks}, "
+              f"collectives over {'/'.join(sorted(set(backends)))}{shared}",
+              flush=True)
+    model = None
+    for ranks, backend in zip(model_ranks, backends):
+        group = dist.new_group(ranks, backend=backend)
+        if rank in ranks:
+            model = ModelGroup(group, m, rank % m, backend)
+    data_group = None
+    for j in range(m):
+        group = dist.new_group(list(range(j, d * m, m)), backend="gloo")
+        if rank % m == j:
+            data_group = group
+    return data_group, model
 
 
 def _has_model_axis(mesh: Mesh) -> bool:
@@ -127,11 +174,47 @@ def param_spec(path: str, mesh: Mesh) -> Tuple[Optional[str], ...]:
 
 
 def shard_params(params, mesh: Mesh):
-    """The parameter tree on this rank: whole, on the data axis. A model
-    axis larger than 1 raises NotImplementedError."""
-    if _has_model_axis(mesh):
-        raise NotImplementedError(NOT_PORTED_MODEL_AXIS)
-    return replicate(params, mesh)
+    """The parameter tree on this rank: on a model axis of size m, each
+    leaf that `param_spec` splits keeps the rank's m-th part of that axis
+    (model index r % m), a contiguous copy; every other leaf stays whole.
+    A fused `qkv` projection ([..., 3D] columns: q, k and v side by side)
+    keeps the rank's part of each of q, k and v, so that its heads stay
+    together. Without a model axis, the tree as it is. Call `replicate`
+    first: it checks that every rank holds the same whole tree."""
+    if not _has_model_axis(mesh):
+        return params
+    m = mesh.shape[MODEL_AXIS]
+    j = mesh.rank % m
+
+    def part(t: torch.Tensor, dim: int, path: str) -> torch.Tensor:
+        n = t.shape[dim]
+        if n % m:
+            raise ValueError(f"{path}: axis {dim} of {tuple(t.shape)} does "
+                             f"not split over a model axis of {m}")
+        return t.narrow(dim, j * (n // m), n // m)
+
+    def place(path: str, t: torch.Tensor) -> torch.Tensor:
+        spec = param_spec(path, mesh)
+        if MODEL_AXIS not in spec:
+            return t
+        dim = spec.index(MODEL_AXIS)
+        if path.split("/")[-2] == "qkv":
+            thirds = t.chunk(3, dim=dim)
+            if thirds[0].shape[dim] * 3 != t.shape[dim]:
+                raise ValueError(f"{path}: {tuple(t.shape)} is not three "
+                                 "equal q, k, v blocks")
+            return torch.cat([part(b, dim, path) for b in thirds], dim=dim)
+        return part(t, dim, path).contiguous()
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{path}/{k}" if path else k)
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, f"{path}/{i}") for i, v in enumerate(node)]
+        return place(path, node) if torch.is_tensor(node) else node
+
+    return walk(params, "")
 
 
 def _leaves(tree):
@@ -181,9 +264,10 @@ def replicate(tree, mesh: Mesh):
 
 def shard_batch(tree, mesh: Mesh):
     """This rank's rows of every leaf's leading (sample) axis, as JAX's
-    data-axis sharding splits it: contiguous blocks in rank order."""
+    data-axis sharding splits it: contiguous blocks in data-index order;
+    the ranks of a model group take the same rows."""
     n_data = mesh.shape[DATA_AXIS]
-    index = mesh.rank // mesh.shape.get(MODEL_AXIS, 1)
+    index = mesh.data_index
 
     def rows(a):
         if a.shape[0] % n_data:

@@ -18,13 +18,17 @@ clean-view logits (or the center view's zero-shot logits), and top-1/top-5
 counts on the device. The `bongard` set runs its own episodic protocol
 (`adapt/bongard.py`).
 
-Under `torch.distributed` (one process a card, `parallel/mesh.py`) each rank
-loads its shard of the seed-shared sample order (`SampleLoader(shard=)`),
-`sample_batch // world` samples a step, and every rank dispatches the same
-number of steps, all-padding filler batches masked out of the counts. The
-step is the single-card program; each batch's counts are summed over the
-ranks on the host before the meters update, so every rank's results are the
-global ones, and rank 0 alone prints and writes `--results_json`.
+Under `torch.distributed` (one process a card, `parallel/mesh.py`, mesh
+(d, m)) each model group loads its data index's shard of the seed-shared
+sample order (`SampleLoader(shard=(rank // m, d))`), `sample_batch // d`
+samples a step, the same on the m ranks of the group, and every rank
+dispatches the same number of steps, all-padding filler batches masked out
+of the counts. On a model axis (m > 1) the frozen classifiers are built
+from the whole text tower first, then each rank keeps its slice of the
+weights (`shard_params`) and the step runs over its heads; each batch's
+counts are summed over the data axis on the host before the meters update,
+so every rank's results are the global ones, and rank 0 alone prints and
+writes `--results_json`.
 
 The loader's prefetch thread makes each batch's random view draws and, for
 a CUDA device, copies the batch to the device from pinned memory on a
@@ -70,7 +74,7 @@ from .ops.attention import fused_mode, scores_mode
 from .ops.lora import adapter_param_count, init_adapters
 from .ops.quant import attach_prefix_quant, quant_prefix_len
 from .parallel.eval import sum_over_ranks, topk_counts
-from .parallel.mesh import Mesh, make_mesh, replicate
+from .parallel.mesh import DATA_AXIS, Mesh, make_mesh, replicate, shard_params
 from .utils.checkpoint import (apply_cocoop_ckpt, apply_prompt_ckpt,
                                load_prompt_state_dict)
 from .utils.meters import AverageMeter, ProgressMeter, Summary
@@ -257,14 +261,33 @@ def prompt_classifier(pl_state, cfg: TTLConfig, clip_cfg,
         pl_state.tokenized, clip_cfg.text, compute_dtype=compute_dtype(cfg)))
 
 
+def frozen_classifier(set_id: str, cfg: TTLConfig, clip_cfg, params, *,
+                      device, prompt_ckpt=None) -> Optional[torch.Tensor]:
+    """The frozen [C, P] classifier a set's step reads: image-LoRA and
+    zero-shot (in prompt mode that of the prompt learner's own ctx); None
+    for the modes that encode their prompts at every step (text-LoRA, TPT,
+    CoCoOp)."""
+    if cfg.cocoop or (cfg.tta_steps > 0 and cfg.lora_encoder != "image"):
+        return None
+    if cfg.tta_steps == 0 and cfg.lora_encoder == "prompt":
+        return prompt_classifier(
+            prompt_learner(set_id, cfg, params, prompt_ckpt), cfg, clip_cfg,
+            params)
+    return text_classifier(set_id, cfg, clip_cfg, params, device=device)
+
+
 def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
                      adapters0, *, device, dataset=None,
                      max_samples: Optional[int] = None,
                      prompt_ckpt: Optional[dict] = None,
-                     mesh: Optional[Mesh] = None) -> List[float]:
+                     mesh: Optional[Mesh] = None,
+                     text_cls: Optional[torch.Tensor] = None) -> List[float]:
     """One dataset: returns [top1, top5] percentages, over every rank of
     `mesh` (None: this process alone). `prompt_ckpt` is the state dict of a
-    `--load` checkpoint, for the modes that read it."""
+    `--load` checkpoint, for the modes that read it. `text_cls` is the
+    set's `frozen_classifier`, built here from `params` where it is None:
+    on a model axis the caller builds it from the whole tower before
+    `shard_params`."""
     if cfg.ensemble and (cfg.cocoop or cfg.lora_encoder != "image"):
         raise ValueError(
             "--ensemble replaces the frozen single-template text classifier "
@@ -282,10 +305,12 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
             "Use --lora_encoder prompt|text or --tta_steps 0.")
     device = torch.device(device)
     rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
-    if cfg.sample_batch % world:
+    index, n_data = (0, 1) if mesh is None else (mesh.data_index,
+                                                 mesh.shape[DATA_AXIS])
+    if cfg.sample_batch % n_data:
         raise ValueError(f"sample_batch ({cfg.sample_batch}) must be a "
-                         f"multiple of the number of processes ({world})")
-    local_bs = cfg.sample_batch // world
+                         f"multiple of the data axis ({n_data})")
+    local_bs = cfg.sample_batch // n_data
     if dataset is None:
         dataset = build_dataset(set_id, cfg)
     n_total = len(dataset) if max_samples is None \
@@ -301,22 +326,26 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
         bucket_canvas=(cfg.canvas == 0 and world == 1
                        and _switched_on("TTL_CANVAS_BUCKETS")),
         max_samples=max_samples, workers=cfg.workers,
-        shard=(rank, world) if world > 1 else None,
-        total_batches=(-(-n_total // cfg.sample_batch) if world > 1
+        shard=(index, n_data) if n_data > 1 else None,
+        total_batches=(-(-n_total // cfg.sample_batch) if n_data > 1
                        else None),
         transform=upload if overlap else None)
+    if text_cls is None:
+        text_cls = frozen_classifier(set_id, cfg, clip_cfg, params,
+                                     device=device, prompt_ckpt=prompt_ckpt)
+    n_classes = len(resolve_classnames(set_id))
     if cfg.cocoop:
         # whatever tta_steps is: the reference's final inference ignores the
         # adapted ctx, so `logits` is the conditioned, unadapted prediction
         co_state = cocoop_state(set_id, cfg, clip_cfg, params, prompt_ckpt)
-        cocoop = make_fused_cocoop_fn(clip_cfg, cfg)
+        cocoop = make_fused_cocoop_fn(clip_cfg, cfg, mesh=mesh)
 
         def step_fn(b: DeviceBatch) -> torch.Tensor:
             return cocoop(params, co_state, b.canvases, b.hs, b.ws,
                           b.draws).logits
     elif cfg.lora_encoder == "prompt" and cfg.tta_steps > 0:
         pl_state = prompt_learner(set_id, cfg, params, prompt_ckpt)
-        tune = make_fused_tpt_fn(clip_cfg, cfg)
+        tune = make_fused_tpt_fn(clip_cfg, cfg, mesh=mesh)
 
         def step_fn(b: DeviceBatch) -> torch.Tensor:
             return tune(params, pl_state, b.canvases, b.hs, b.ws,
@@ -324,15 +353,11 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
     elif cfg.tta_steps > 0:
         # text mode re-encodes the class prompts at every step: it takes
         # their token table, and no frozen classifier
-        if cfg.lora_encoder == "text":
-            text_cls = None
-            toks = prompt_tokens(resolve_classnames(set_id),
-                                 cfg.ctx_init.replace("_", " "))
-        else:
-            text_cls = text_classifier(set_id, cfg, clip_cfg, params,
-                                       device=device)
-            toks = None
-        adapt = make_fused_ttl_fn(clip_cfg, cfg, tokens=toks)
+        toks = prompt_tokens(resolve_classnames(set_id),
+                             cfg.ctx_init.replace("_", " ")) \
+            if cfg.lora_encoder == "text" else None
+        adapt = make_fused_ttl_fn(clip_cfg, cfg, tokens=toks, mesh=mesh,
+                                  n_classes=n_classes)
 
         def step_fn(b: DeviceBatch) -> torch.Tensor:
             return adapt(params, text_cls, adapters0, b.canvases, b.hs, b.ws,
@@ -340,14 +365,7 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
     else:
         # zero-shot on the deterministic center view; in prompt mode with
         # the prompt learner's own unadapted ctx prompts
-        if cfg.lora_encoder == "prompt":
-            text_cls = prompt_classifier(
-                prompt_learner(set_id, cfg, params, prompt_ckpt), cfg,
-                clip_cfg, params)
-        else:
-            text_cls = text_classifier(set_id, cfg, clip_cfg, params,
-                                       device=device)
-        zeroshot = make_fused_zeroshot_fn(clip_cfg, cfg)
+        zeroshot = make_fused_zeroshot_fn(clip_cfg, cfg, mesh=mesh)
 
         def step_fn(b: DeviceBatch) -> torch.Tensor:
             return zeroshot(params, text_cls, b.canvases, b.hs, b.ws)
@@ -357,8 +375,6 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
     top5 = AverageMeter("Acc@5", ":6.2f", Summary.AVERAGE)
     progress = ProgressMeter(len(loader), [batch_time, top1, top5],
                              prefix="Test: ")
-
-    n_classes = len(resolve_classnames(set_id))
 
     @contextlib.contextmanager
     def oom_hint():
@@ -382,7 +398,8 @@ def evaluate_dataset(set_id: str, cfg: TTLConfig, clip_cfg, params,
         return topk_counts(step_fn(b), b.labels, b.valid)
 
     def drain(i, pending):
-        c1, c5, n = sum_over_ranks(pending).tolist()
+        c1, c5, n = sum_over_ranks(
+            pending, None if mesh is None else mesh.data_group).tolist()
         if n > 0:
             top1.update(100.0 * c1 / n, n)
             top5.update(100.0 * c5 / n, n)
@@ -413,8 +430,8 @@ def run(cfg: TTLConfig, *, device, datasets: Optional[Dict] = None,
     """Every set of cfg.test_sets, with the reference's summary table.
     `datasets` optionally maps set_id -> dataset object (tests, smoke runs).
     Under an initialized torch.distributed group every process calls it,
-    each with its own device, and the data axis spans the group
-    (`cfg.mesh_shape`, default all of it)."""
+    each with its own device, and the mesh (`cfg.mesh_shape`: (data,) or
+    (data, model); default all of it on the data axis) spans the group."""
     device = torch.device(device)
     check_supported(cfg)
     mesh = make_mesh(cfg.mesh_shape, device)
@@ -431,6 +448,17 @@ def run(cfg: TTLConfig, *, device, datasets: Optional[Dict] = None,
         read_switch()
     clip_cfg, params = load_model(cfg, device)
     params = replicate(params, mesh)
+    prompt_ckpt = None
+    if cfg.load and (cfg.cocoop or cfg.lora_encoder == "prompt"):
+        prompt_ckpt = load_prompt_state_dict(cfg.load)
+    # the frozen classifiers from the whole text tower, then this rank's
+    # slice of the weights (the tree as it is without a model axis)
+    classifiers = {set_id: frozen_classifier(set_id, cfg, clip_cfg, params,
+                                             device=device,
+                                             prompt_ckpt=prompt_ckpt)
+                   for set_id in cfg.test_sets.split("/")
+                   if set_id != "bongard"}
+    params = shard_params(params, mesh)
     adapters0 = replicate(None if cfg.lora_encoder == "prompt"
                           else make_adapters0(cfg, clip_cfg, device), mesh)
     extra = (f" ({adapter_param_count(adapters0):,} LoRA params/sample)"
@@ -440,10 +468,7 @@ def run(cfg: TTLConfig, *, device, datasets: Optional[Dict] = None,
               flush=True)
         if mesh.world > 1:
             print(f"data-parallel eval over mesh {mesh.shape}", flush=True)
-    prompt_ckpt = None
-    if cfg.load and (cfg.cocoop or cfg.lora_encoder == "prompt"):
-        prompt_ckpt = load_prompt_state_dict(cfg.load)
-    elif cfg.load and is_main:
+    if cfg.load and prompt_ckpt is None and is_main:
         print(f"WARNING: --load {cfg.load} is a CoOp/CoCoOp prompt "
               "checkpoint and has no effect in the LoRA modes; ignoring it, "
               "as the reference does", flush=True)
@@ -472,7 +497,7 @@ def run(cfg: TTLConfig, *, device, datasets: Optional[Dict] = None,
             results[set_id] = evaluate_dataset(
                 set_id, cfg, clip_cfg, params, adapters0, device=device,
                 dataset=ds, max_samples=max_samples, prompt_ckpt=prompt_ckpt,
-                mesh=mesh)
+                mesh=mesh, text_cls=classifiers[set_id])
         if is_main:
             print("=> Acc. on testset [{}]: @1 {:.2f}/ @5 {:.2f}".format(
                 set_id, results[set_id][0], results[set_id][1]), flush=True)

@@ -14,16 +14,26 @@ serializing one 64-view adaptation per request.
 
 The command runs on a CUDA card (`--gpu`); `TTLPredictor(...,
 device="cpu")` runs the plain versions of the kernels on the CPU.
-Serving over several cards (`use_mesh`, `--mesh`, `--mesh_shape`) is not
-ported and raises NotImplementedError (ROADMAP Queue 1, item 21): one JAX
-process spans every local chip, where the port runs one process a card, so
-it needs a front process and ranks.
+
+Serving over several cards (`use_mesh`, `--mesh`, `--mesh_shape d,m`): one
+JAX process spans every local chip, where the port runs one process a card,
+N processes under `python -m torch.distributed.run --nproc_per_node N -m
+ttl_tpu_torch.serve ... --mesh_shape d,m`, on the (data, model) mesh of
+`parallel/mesh.py`. Rank 0 is the front process: it owns the HTTP port and
+the micro-batcher, and for each step broadcasts the batch (the uint8
+canvases, their sizes and the draws' keys) over gloo. Every rank runs its
+data index's rows, over its model group's heads where m > 1, and the
+results are gathered over the data axis. On SIGTERM rank 0 drains, then
+broadcasts a stop; the other ranks ignore the signal (the launcher sends it
+to every process) and exit when the stop comes.
 """
 from __future__ import annotations
 
 import contextlib
+import datetime
 import io
 import json
+import os
 import queue
 import sys
 import threading
@@ -32,10 +42,11 @@ import traceback
 import zlib
 from collections import deque
 from concurrent.futures import Future
-from typing import List, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .adapt.ttl import compute_dtype, make_fused_ttl_fn
 from .config import TTLConfig
@@ -43,13 +54,22 @@ from .data.views import DEFAULT_CANVAS, place_on_canvas
 from .models.clip import VisionConfig
 from .models.prompts import build_text_classifier, prompt_tokens
 from .models.zoo import get_arch
+from .parallel.eval import all_gather_rows
+from .parallel.mesh import (DATA_AXIS, check_mesh_shape, make_mesh,
+                            replicate, shard_params)
 from .predict import softmax_np
 from .runner import (full_f32_products, load_model, make_adapters0,
                      sample_draws)
 
-NOT_PORTED_MESH = ("serving over several cards (use_mesh, --mesh, "
-                   "--mesh_shape) is not ported to ttl_tpu_torch yet "
-                   "(ROADMAP Queue 1, item 21)")
+# an idle server's other ranks wait in a broadcast for rank 0's next step:
+# the process group's timeout bounds that wait
+IDLE_TIMEOUT = datetime.timedelta(days=365)
+
+
+class Served(NamedTuple):
+    """A step's results on rank 0: the whole batch's, on the host."""
+    logits: torch.Tensor
+    zero_shot_logits: torch.Tensor
 
 
 class TTLPredictor:
@@ -64,11 +84,22 @@ class TTLPredictor:
                  cfg: TTLConfig = TTLConfig(), *, device,
                  params=None, clip_cfg=None, warmup: bool = True,
                  use_mesh: bool = False):
-        if use_mesh or cfg.mesh_shape is not None:
-            raise NotImplementedError(NOT_PORTED_MESH)
+        """With `use_mesh` (or a config's `mesh_shape`) every process of
+        the initialized torch.distributed group builds one, on its own
+        device, over the mesh `cfg.mesh_shape` (default all processes on
+        the data axis); rank 0 then serves (`serve`), the others `follow`.
+        """
         self.cfg = cfg
         self.classnames = list(classnames)
         self.device = torch.device(device)
+        self.mesh = None
+        if use_mesh or cfg.mesh_shape is not None:
+            mesh = make_mesh(cfg.mesh_shape, self.device)
+            if cfg.sample_batch % mesh.shape[DATA_AXIS] != 0:
+                raise ValueError(
+                    f"sample_batch ({cfg.sample_batch}) must be a multiple "
+                    f"of the data axis ({mesh.shape[DATA_AXIS]})")
+            self.mesh = mesh
         # the JAX package's mode validation (otherwise unsupported combos
         # die with opaque errors at warmup)
         vision = (clip_cfg or get_arch(cfg.arch)).vision
@@ -86,28 +117,39 @@ class TTLPredictor:
         full_f32_products(self.device)
         if params is None:
             clip_cfg, params = load_model(cfg, self.device)
-        self.clip_cfg, self.params = clip_cfg, params
+        if self.mesh is not None:
+            params = replicate(params, self.mesh)
         toks = prompt_tokens(self.classnames,
                              cfg.ctx_init.replace("_", " "))
         text_mode = cfg.lora_encoder == "text"
-        # text mode encodes the class prompts at every step, from their tokens
+        # text mode encodes the class prompts at every step, from their
+        # tokens; the frozen classifier comes from the whole text tower
         self.text_cls = None if text_mode else build_text_classifier(
             params["text"], toks, clip_cfg.text, device=self.device,
             compute_dtype=compute_dtype(cfg))
+        if self.mesh is not None:
+            params = shard_params(params, self.mesh)
+        self.clip_cfg, self.params = clip_cfg, params
         self.adapters0 = make_adapters0(cfg, clip_cfg, self.device)
         # one fused step per batch: view rendering + episodic adaptation;
         # responses include the pre-adaptation label, so opt into the
         # zero-shot aux pass (the eval runner leaves it off)
         self.step_fn = make_fused_ttl_fn(clip_cfg, cfg,
                                          tokens=toks if text_mode else None,
-                                         zero_shot_aux=True)
+                                         zero_shot_aux=True, mesh=self.mesh,
+                                         n_classes=len(self.classnames))
         # --canvas: smaller canvases cut the per-step host->device upload;
         # requests larger than the canvas are downscaled to fit, as in the
         # eval loader
         self._canvas = cfg.canvas if cfg.canvas > 0 else DEFAULT_CANVAS
         self._lock = threading.Lock()  # one step dispatched at a time
         if warmup:  # also builds the kernels at their first launch
-            self.predict([np.zeros((64, 64, 3), np.uint8)])
+            # every rank runs the same warm-up step, so none is broadcast
+            self._run(*self._inputs([np.zeros((64, 64, 3), np.uint8)]))
+
+    @property
+    def _ranks(self) -> int:
+        return 1 if self.mesh is None else self.mesh.world
 
     def _on_device(self):
         """The predictor's card as the thread's current device: a kernel
@@ -125,10 +167,9 @@ class TTLPredictor:
             hs[i], ws[i] = place_on_canvas(canv[i], img)
         return canv, hs, ws
 
-    def dispatch(self, images: Sequence[np.ndarray]):
-        """Enqueue one fused device step for up to sample_batch images
-        (asynchronous on a card: the device computes while the host does
-        other work). Returns an opaque handle for `collect`."""
+    def _inputs(self, images: Sequence[np.ndarray]):
+        """(canvases, hs, ws, keys) of one step for up to sample_batch
+        images."""
         chunk = list(images)
         if len(chunk) > self.cfg.sample_batch:
             raise ValueError(f"{len(chunk)} images in one step; at most "
@@ -143,6 +184,16 @@ class TTLPredictor:
         for i, img in enumerate(chunk):
             idxs[i] = zlib.crc32(np.ascontiguousarray(img).tobytes()) \
                 & 0x7FFFFFFF
+        return canv, hs, ws, idxs
+
+    def _run(self, canv, hs, ws, idxs):
+        """The fused step over this rank's rows of the batch (all of them
+        in one process); on several ranks the results are gathered over
+        the data axis, on the host."""
+        if self.mesh is not None:
+            n = self.cfg.sample_batch // self.mesh.shape[DATA_AXIS]
+            lo = self.mesh.data_index * n
+            canv, hs, ws, idxs = (a[lo:lo + n] for a in (canv, hs, ws, idxs))
         draws = sample_draws(self.cfg, idxs)
         with self._lock, self._on_device():
             def put(x):
@@ -150,7 +201,52 @@ class TTLPredictor:
             res = self.step_fn(self.params, self.text_cls, self.adapters0,
                                put(canv), put(hs), put(ws),
                                {k: put(t) for k, t in draws.items()})
-        return res, len(chunk)
+        if self._ranks == 1:
+            return res
+        group = self.mesh.data_group
+        return Served(all_gather_rows(res.logits.float().cpu(), group),
+                      all_gather_rows(res.zero_shot_logits.float().cpu(),
+                                      group))
+
+    def _share(self, n: int, inputs=None) -> Optional[tuple]:
+        """Rank 0 broadcasts a step's inputs (n real images; n = 0 stops
+        the other ranks) over the default group; the others receive them
+        (None at the stop)."""
+        header = torch.tensor([n], dtype=torch.int64)
+        dist.broadcast(header, src=0)
+        if int(header) == 0:
+            return None
+        s, c = self.cfg.sample_batch, self._canvas
+        if inputs is None:
+            inputs = (np.empty((s, c, c, 3), np.uint8),
+                      np.empty((s,), np.int32), np.empty((s,), np.int32),
+                      np.empty((s,), np.int64))
+        for a in inputs:
+            dist.broadcast(torch.from_numpy(a), src=0)
+        return inputs
+
+    def dispatch(self, images: Sequence[np.ndarray]):
+        """Enqueue one fused device step for up to sample_batch images
+        (asynchronous on a card in one process: the device computes while
+        the host does other work; on several ranks rank 0 broadcasts the
+        batch and waits for the gathered results). Returns an opaque handle
+        for `collect`."""
+        inputs = self._inputs(images)
+        if self._ranks > 1:
+            self._share(len(images), inputs)
+        return self._run(*inputs), len(images)
+
+    def follow(self) -> None:
+        """The ranks but 0: run every step rank 0 broadcasts, until its
+        stop (`stop_followers`)."""
+        while (inputs := self._share(0)) is not None:
+            self._run(*inputs)
+
+    def stop_followers(self) -> None:
+        """On rank 0 of several ranks: let the other ranks' `follow`
+        return."""
+        if self._ranks > 1:
+            self._share(0)
 
     def collect(self, handle, *, topk: int = 5) -> List[dict]:
         """Fetch a dispatched step's results (waits for the device)."""
@@ -365,7 +461,9 @@ def serve(predictor: TTLPredictor, host: str = "127.0.0.1",
     """Threaded HTTP endpoint with cross-request batching: POST an image
     body to /predict; concurrent posts share one fused device step.
     Overload (queue past `max_queue`, default 4x sample_batch) is shed
-    with 503 + Retry-After instead of queueing toward timeout."""
+    with 503 + Retry-After instead of queueing toward timeout. Over
+    several ranks it runs on rank 0, and when it has drained it stops the
+    others."""
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     batcher = MicroBatcher(predictor, max_delay_ms, max_queue=max_queue)
@@ -424,6 +522,7 @@ def serve(predictor: TTLPredictor, host: str = "127.0.0.1",
     _install_graceful_shutdown(httpd, batcher)
     httpd.serve_forever()
     drain(batcher)
+    predictor.stop_followers()
 
 
 def _install_graceful_shutdown(httpd, batcher) -> None:
@@ -475,10 +574,14 @@ def build_parser():
                         "expected max image dim to cut upload bandwidth - "
                         "larger images are downscaled to fit")
     p.add_argument("--mesh", action="store_true",
-                   help="not ported yet: raises NotImplementedError")
+                   help="serve over every process of python -m "
+                        "torch.distributed.run, one a card (sample_batch "
+                        "must be a multiple of the data-axis size)")
     p.add_argument("--mesh_shape", default=None,
                    type=lambda s: tuple(int(x) for x in s.split(",")),
-                   help="not ported yet: raises NotImplementedError")
+                   help="explicit mesh shape, e.g. '4,2' for {data:4, "
+                        "model:2} (implies --mesh; default: all processes "
+                        "on the data axis)")
     p.add_argument("--prefix_quant", default="none",
                    choices=["none", "int8"],
                    help="int8-quantize the frozen vision prefix "
@@ -491,28 +594,63 @@ def build_parser():
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", default=8787, type=int)
     p.add_argument("--gpu", default=0, type=int,
-                   help="index of the CUDA card to serve from")
+                   help="index of the CUDA card to serve from (one "
+                        "process; under torch.distributed.run each rank "
+                        "serves from cuda:LOCAL_RANK)")
     return p
+
+
+def _follow_through_sigterm() -> None:
+    """A rank but 0 keeps following on SIGTERM: the launcher sends it to
+    every process, and rank 0 drains and then stops them."""
+    import signal
+
+    def _wait(signum, frame):
+        print(f"ttl_tpu_torch serve: signal {signum}; rank "
+              f"{dist.get_rank()} finishes with rank 0's stop", flush=True)
+    signal.signal(signal.SIGTERM, _wait)
+    signal.signal(signal.SIGINT, _wait)
 
 
 def main(argv=None):
     from .data.classnames import resolve_classnames
 
     args = build_parser().parse_args(argv)
-    if args.mesh or args.mesh_shape is not None:
-        raise NotImplementedError(NOT_PORTED_MESH)
+    use_mesh = args.mesh or args.mesh_shape is not None
+    # the processes of python -m torch.distributed.run, or this one alone
+    ranks = use_mesh and "WORLD_SIZE" in os.environ
+    if use_mesh and not ranks:
+        check_mesh_shape(args.mesh_shape, 1)
+    if ranks and args.gpu != 0:
+        raise ValueError("--gpu does not apply under torch.distributed.run: "
+                         "each rank serves from cuda:LOCAL_RANK")
     if not torch.cuda.is_available():
         raise RuntimeError("ttl_tpu_torch needs a CUDA device; none is "
                            "available")
+    device = torch.device(f"cuda:{args.gpu}")
+    if ranks:
+        dist.init_process_group("gloo", init_method="env://",
+                                timeout=IDLE_TIMEOUT)
+        device = torch.device(f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}")
+    torch.cuda.set_device(device)
     cfg = TTLConfig(arch=args.arch, resolution=args.resolution,
                     checkpoint_path=args.checkpoint_path,
                     sample_batch=args.sample_batch,
                     test_sets=args.test_sets, canvas=args.canvas,
-                    prefix_quant=args.prefix_quant, gpu=args.gpu)
-    predictor = TTLPredictor(resolve_classnames(args.test_sets), cfg,
-                             device=torch.device(f"cuda:{args.gpu}"))
-    serve(predictor, args.host, args.port, max_delay_ms=args.max_delay_ms,
-          max_queue=args.max_queue)
+                    prefix_quant=args.prefix_quant, gpu=args.gpu,
+                    mesh_shape=args.mesh_shape)
+    try:
+        predictor = TTLPredictor(resolve_classnames(args.test_sets), cfg,
+                                 device=device, use_mesh=use_mesh)
+        if not ranks or dist.get_rank() == 0:
+            serve(predictor, args.host, args.port,
+                  max_delay_ms=args.max_delay_ms, max_queue=args.max_queue)
+        else:
+            _follow_through_sigterm()
+            predictor.follow()
+    finally:
+        if ranks:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":
