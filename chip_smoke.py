@@ -180,6 +180,16 @@ per source, side by side), then:
 36. the tools: `tools/torch_quant_fidelity.py --samples 16` at ViT-B/16
    (its JSON line), and `tools/torch_convert_checkpoint.py` on phase 26's
    seeded RN50 `.pt`: the `.npz` holds the checkpoint's leaves bit for bit.
+37. `python3 bench_torch.py` at its defaults in a process of its own: its
+   one JSON line echoed, a rate, the H100's name, every stage (the
+   headline's busy rate, 1000 classes, the int8 prefix) and the launches a
+   step of each (K1 15, K2 3; K5 54 in the int8 stage);
+38. `tools/torch_bench_arches.py --rows ViT-B/32` (wall and busy rates, 15
+   K1 and 3 K2 a step) and `tools/torch_bench_host_loader.py --n 256`
+   (PIL's host rate, and the native decoder's where it loads);
+39. `bench_torch.py` as two processes on cuda:0 over gloo (RANK 0 and 1,
+   WORLD_SIZE 2, LOCAL_RANK 0, TTL_BENCH_S=2): the aggregate stage, rank 0
+   alone printing, with the aggregate's launches.
 
 Every device time comes from `ttl_tpu_torch/utils/profiling.py`'s reading
 of a torch.profiler trace (`profiled`), the reader `--profile` uses.
@@ -2734,6 +2744,141 @@ def phase_tools(build_dir) -> dict:
     return {"fidelity": fidelity}
 
 
+
+# launches a step of bench_torch.py's stages at ViT-B/16 (and of
+# torch_bench_arches.py's ViT-B/32 row: 12 layers, the same window)
+BENCH_LAUNCHES = {"K1": 15, "K2": 3, "K5": 0}
+BENCH_INT8_LAUNCHES = {"K1": 15, "K2": 3, "K5": 54}
+
+
+def json_lines(text: str) -> list:
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def run_script(argv: list, timeout: float = 900) -> tuple:
+    """A script of this checkout in a process of its own: (its one JSON
+    line, seconds); raises unless it exits 0 with exactly one."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, *argv], cwd=root,
+                         capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    lines = json_lines(run.stdout)
+    if run.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"{argv[0]} exited {run.returncode} with "
+                             f"{len(lines)} JSON lines:\n{run.stdout[-2000:]}"
+                             f"\n{run.stderr[-4000:]}")
+    return lines[0], seconds
+
+
+def check_bench_line(out: dict, stages: dict) -> None:
+    """bench_torch.py's line: a rate, the card, no stage skipped or cut by
+    the watchdog, and each stage's launches a step."""
+    if not out["value"] > 0 or "H100" not in out["device"]["name"]:
+        raise AssertionError(f"bench_torch: {out}")
+    if "skipped_stages" in out or "watchdog_timeout" in out:
+        raise AssertionError(f"bench_torch: a stage was left out: {out}")
+    if out["launches"] != stages:
+        raise AssertionError(f"bench_torch: launches {out['launches']}, "
+                             f"expected {stages}")
+
+
+def phase_bench() -> dict:
+    """`python3 bench_torch.py` at its defaults (ViT-B/16, S = 10, 200 and
+    1000 classes, the int8 prefix) as a user runs it: its one JSON line,
+    echoed here, with a rate, the H100's name, every stage's figures and
+    the launches a step of each stage."""
+    out, seconds = run_script(["bench_torch.py"])
+    log(f"bench_torch.py in {seconds:.1f} s: {json.dumps(out)}")
+    check_bench_line(out, {"headline": BENCH_LAUNCHES,
+                           "1000_classes": BENCH_LAUNCHES,
+                           "int8_prefix": BENCH_INT8_LAUNCHES})
+    for key in ("busy_equivalent_sps", "value_1000_classes",
+                "busy_1000_classes_sps", "value_int8_prefix",
+                "busy_int8_prefix_sps"):
+        if not out.get(key, 0) > 0:
+            raise AssertionError(f"bench_torch: no {key}: {out}")
+    return {"bench": out, "seconds": seconds}
+
+
+def phase_bench_tools() -> dict:
+    """`tools/torch_bench_arches.py --rows ViT-B/32` (wall and busy rates,
+    15 K1 and 3 K2 a step) and `tools/torch_bench_host_loader.py` over 256
+    synthetic JPEGs (the PIL host rate, and the native decoder's where the
+    host has libjpeg)."""
+    arches, arches_s = run_script(["tools/torch_bench_arches.py", "--rows",
+                                   "ViT-B/32"])
+    (row,) = arches["rows"]
+    log(f"torch_bench_arches --rows ViT-B/32 in {arches_s:.1f} s: "
+        f"{json.dumps(arches)}")
+    if not (row["wall_sps"] > 0 and row.get("busy_sps", 0) > 0
+            and row["launches"] == BENCH_LAUNCHES):
+        raise AssertionError(f"torch_bench_arches: {row}")
+    loader, loader_s = run_script(["tools/torch_bench_host_loader.py",
+                                   "--n", "256"])
+    log(f"torch_bench_host_loader --n 256 in {loader_s:.1f} s: "
+        f"{json.dumps(loader)}")
+    # the native decoder needs libjpeg on the host: where it is missing the
+    # loader takes PIL, and the line says so
+    if not (loader["pil_sps"] > 0 and (loader.get("native_sps", 0) > 0
+                                       or not loader["native_available"])):
+        raise AssertionError(f"torch_bench_host_loader: {loader}")
+    return {"arches": arches, "loader": loader}
+
+
+def phase_bench_ranks(build_dir) -> dict:
+    """`bench_torch.py` as two processes on cuda:0 (RANK 0 and 1,
+    WORLD_SIZE 2, LOCAL_RANK 0, gloo; TTL_BENCH_S=2): the aggregate stage
+    runs the step split over the ranks, 2 samples on each; rank 0 alone
+    prints, with `aggregate_sps`, `per_chip_sps`, `device_count` 2 and the
+    aggregate's launches (15 K1, 3 K2 a step on each rank)."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "WORLD_SIZE": "2", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": free_port(),
+           "TTL_BENCH_S": "2"}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        logs = [open(os.path.join(tmp, f"rank{r}.{k}"), "w+")
+                for r in range(2) for k in ("out", "err")]
+        procs = [subprocess.Popen(
+            [sys.executable, "bench_torch.py"], cwd=root,
+            env={**env, "RANK": str(r)}, stdout=logs[2 * r],
+            stderr=logs[2 * r + 1]) for r in range(2)]
+        try:
+            for p in procs:
+                p.wait(timeout=900)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        texts = []
+        for f in logs:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+    seconds = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"bench_torch rank {r} exited "
+                                 f"{p.returncode}:\n{texts[2 * r + 1][-4000:]}")
+    lines = [json_lines(texts[0]), json_lines(texts[2])]
+    if len(lines[0]) != 1 or lines[1]:
+        raise AssertionError(f"bench_torch ranks printed {lines}")
+    out = lines[0][0]
+    log(f"bench_torch.py over two ranks on cuda:0 in {seconds:.1f} s: "
+        f"{json.dumps(out)}")
+    check_bench_line(out, {"headline": BENCH_LAUNCHES,
+                           "1000_classes": BENCH_LAUNCHES,
+                           "aggregate": BENCH_LAUNCHES,
+                           "int8_prefix": BENCH_INT8_LAUNCHES})
+    if not (out["aggregate_sps"] > 0 and out["device_count"] == 2
+            and out["device"]["ranks"] == 2):
+        raise AssertionError(f"bench_torch ranks: {out}")
+    return {"bench": out, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2839,6 +2984,11 @@ def main() -> int:
         start = time.perf_counter()
         seconds[phase] = (run(), time.perf_counter() - start)
         log(f"phase {phase} took {seconds[phase][1]:.1f} s")
+    for phase, run in ((37, phase_bench), (38, phase_bench_tools),
+                       (39, lambda: phase_bench_ranks(lib.parent))):
+        start = time.perf_counter()
+        seconds[phase] = (run(), time.perf_counter() - start)
+        log(f"phase {phase} took {seconds[phase][1]:.1f} s")
     predict_runs, served, bongard_runs = (seconds[p][0] for p in (27, 29, 30))
     profile_run, _, data_parallel = (seconds[p][0] for p in (31, 32, 33))
     model_axis, served_ranks, tools = (seconds[p][0] for p in (34, 35, 36))
@@ -2857,7 +3007,10 @@ def main() -> int:
         f"{model_axis['model_ms']}, against one process: "
         f"{model_axis['errors']}; serve over two ranks {served_ranks}; "
         f"quant fidelity {tools['fidelity']}; phases 34-36 took "
-        f"{sum(seconds[p][1] for p in (34, 35, 36)):.1f} s")
+        f"{sum(seconds[p][1] for p in (34, 35, 36)):.1f} s; bench_torch "
+        f"{seconds[37][0]['bench']['value']} samples/s at S = 10 against "
+        f"phase 4's {main_path['samples_per_s']:.3f} at S = 8; phases 37-39 "
+        f"took {sum(seconds[p][1] for p in (37, 38, 39)):.1f} s")
     paths = {"main path": main_path, "int8 main path": int8_path,
              "zero-shot": zero_shot, "text-LoRA (per_head)": text_path,
              "prompt tuning (heads)": prompt_path, "CoCoOp": cocoop_path,

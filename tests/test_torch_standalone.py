@@ -7,6 +7,7 @@ import dataclasses
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -43,6 +44,7 @@ import ttl_tpu_torch.adapt.bongard, ttl_tpu_torch.data.bongard
 import ttl_tpu_torch.utils.profiling, ttl_tpu_torch.utils.analysis
 import ttl_tpu_torch.parallel.mesh, ttl_tpu_torch.parallel.eval
 import ttl_tpu_torch.parallel.tensor
+import bench_torch
 from ttl_tpu_torch.config import TTLConfig
 from ttl_tpu_torch.data.views import ArrayDataset
 from ttl_tpu_torch.models.clip import CLIPConfig
@@ -86,7 +88,7 @@ assert {"ttl_tpu_torch.predict", "ttl_tpu_torch.serve",
         "ttl_tpu_torch.adapt.bongard", "ttl_tpu_torch.data.bongard",
         "ttl_tpu_torch.utils.profiling", "ttl_tpu_torch.utils.analysis",
         "ttl_tpu_torch.parallel.mesh", "ttl_tpu_torch.parallel.eval",
-        "ttl_tpu_torch.parallel.tensor"} <= set(sys.modules)
+        "ttl_tpu_torch.parallel.tensor", "bench_torch"} <= set(sys.modules)
 print("STANDALONE OK")
 """
 
@@ -94,19 +96,22 @@ print("STANDALONE OK")
 def test_port_runs_end_to_end_without_jax_or_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", textwrap.dedent(RUN)],
                           capture_output=True, text=True, timeout=600,
-                          env=test_torch_threads.subprocess_env())
+                          env=test_torch_threads.subprocess_env(),
+                          cwd=Path(tconfig.__file__).resolve().parents[1])
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "STANDALONE OK" in proc.stdout
 
 
 def test_no_source_file_of_the_port_imports_jax_or_the_jax_package():
     import re
-    from pathlib import Path
     root = Path(tconfig.__file__).resolve().parent
-    pattern = re.compile(r"^\s*(from|import)\s+(jax|ttl_tpu)(\.|\s|$)", re.M)
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|ttl_tpu|bench)(\.|\s|$)",
+                         re.M)
     tools = sorted((root.parent / "tools").glob("torch_*.py"))
     assert len(tools) >= 4
-    files = list(root.rglob("*.py")) + [root.parent / "chip_smoke.py"] + tools
+    files = (list(root.rglob("*.py")) + [root.parent / "chip_smoke.py",
+                                         root.parent / "bench_torch.py"]
+             + tools)
     assert len(files) > 20
     for path in files:
         assert not pattern.search(path.read_text()), path
