@@ -1,6 +1,6 @@
 """The bench tools of the PyTorch port (`tools/torch_bench_arches.py`,
 `torch_bench_host_loader.py`, `torch_vitl_ceiling.py`,
-`torch_wall_vs_busy.py`, `torch_serve_coldstart.py`) on the CPU, as
+`torch_serve_coldstart.py`) on the CPU, as
 tests/test_bench.py drives tools/bench_arches.py.
 
 - `torch_bench_arches --rows test-tiny,test-tiny:text` with
@@ -11,8 +11,6 @@ tests/test_bench.py drives tools/bench_arches.py.
 - `torch_vitl_ceiling --floor-only`: the JAX tool's FLOP counts for
   ViT-L/14 and ViT-B/16, against the H100's bf16 peak; a measured row at
   test-tiny on the CPU (no device time there).
-- `torch_wall_vs_busy` at test-tiny on the CPU: the phases' host times and
-  no busy time.
 - `torch_serve_coldstart` against a stand-in server process (the port's
   server needs a card): the READY and first-answer seconds, and exit 1 for
   a server that dies before its READY line.
@@ -104,17 +102,6 @@ def test_ceiling_row_at_test_tiny_on_the_cpu(monkeypatch):
     (row,) = out["rows"]
     assert row["s"] == 2 and row["wall_sps"] > 0
     assert "busy_ms_per_step" not in row and out["device"]["name"] == "cpu"
-
-
-def test_wall_vs_busy_on_the_cpu(monkeypatch):
-    monkeypatch.setenv("TTL_BENCH_PLATFORM", "cpu")
-    out = load_tool("torch_wall_vs_busy").main(
-        ["--arch", "test-tiny", "--steps", "3", "--sample_batch", "2",
-         "--classes", "5"])
-    assert out["steps"] == 3 and out["depth"] == 2 and out["wall_sps"] > 0
-    for phase in ("prep", "dispatch", "drain"):
-        assert 0 <= out[f"{phase}_ms_per_step"] <= out["wall_ms_per_step"]
-    assert "busy_ms_per_step" not in out
 
 
 FAKE_SERVER = textwrap.dedent("""

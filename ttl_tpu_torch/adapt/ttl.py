@@ -66,6 +66,7 @@ from ..ops.image import (Draws, preprocess_center, render_views,
                          resize_bilinear, sample_generator)
 from ..ops.lora import lora_scale
 from ..parallel import tensor as tp
+from ..utils.profiling import span
 
 # torch.optim.AdamW defaults, as the reference and the JAX package use them
 ADAMW_BETAS = (0.9, 0.999)
@@ -383,8 +384,26 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
                                  f"the step was built for {n_classes}")
             n = n_classes // classes.size
             text_cls = text_cls[classes.index * n:(classes.index + 1) * n]
-        with torch.no_grad():
+        # spans (utils/profiling.py): the frozen prefix, the adaptation
+        # loop, the clean-view and zero-shot passes
+        with span("step.prefix"), torch.no_grad():
             frozen = frozen_state(params, views)
+        with span("step.adapt"):
+            leaves, losses = adapt(params, text_cls, adapters0, views,
+                                   plpd_perm, frozen)
+        with span("step.classify"), torch.no_grad():
+            clean = frozen.unflatten(0, (s, v))[:, 0]
+            out = logits_for(params, text_cls, leaves, clean, s)[:, 0]
+            return AdaptResult(
+                logits=out, losses=torch.stack(losses, dim=1),
+                adapters=_to_tree(leaves),
+                zero_shot_logits=(zero_shot(params, text_cls, frozen, s, v)
+                                  if zero_shot_aux else None))
+
+    def adapt(params, text_cls, adapters0, views, plpd_perm, frozen):
+        """The update steps from adapters0: (final leaves, [loss [S]] of
+        each step)."""
+        s = views.shape[0]
         leaves = [adapters0[m][ab].expand(s, *adapters0[m][ab].shape)
                   .clone() for m, ab in _LEAVES]
         every = torch.ones(s, dtype=torch.bool, device=views.device)
@@ -426,14 +445,7 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
                     [t.detach() for t in leaves], grads, mu, nu, count, do,
                     cfg.lr)
             losses.append(loss.detach())
-        with torch.no_grad():
-            clean = frozen.unflatten(0, (s, v))[:, 0]
-            out = logits_for(params, text_cls, leaves, clean, s)[:, 0]
-        return AdaptResult(
-            logits=out, losses=torch.stack(losses, dim=1),
-            adapters=_to_tree(leaves),
-            zero_shot_logits=(zero_shot(params, text_cls, frozen, s, v)
-                              if zero_shot_aux else None))
+        return leaves, losses
 
     return over_mesh(mesh, step)
 
@@ -453,12 +465,13 @@ def make_fused_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *, tokens=None,
 
     def fused(params, text_cls, adapters0, canvases, hs, ws,
               draws: Draws) -> AdaptResult:
-        with torch.no_grad():
-            views = render_views(canvases, hs, ws, draws,
-                                 out_size=cfg.resolution, out_dtype=cd,
-                                 aug_ops=cfg.aug_ops)
-        return batched(params, text_cls, adapters0, views,
-                       draws.get("plpd_perm"))
+        with span("step"):
+            with span("step.render"), torch.no_grad():
+                views = render_views(canvases, hs, ws, draws,
+                                     out_size=cfg.resolution, out_dtype=cd,
+                                     aug_ops=cfg.aug_ops)
+            return batched(params, text_cls, adapters0, views,
+                           draws.get("plpd_perm"))
 
     return fused
 

@@ -31,6 +31,8 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 from PIL import Image
 
+from ..utils.profiling import span
+
 DEFAULT_CANVAS = 512
 
 
@@ -42,6 +44,7 @@ class SampleBatch:
     labels: np.ndarray     # [B] int64
     indices: np.ndarray    # [B] int64  (dataset positions)
     pad: int = 0           # trailing entries that are padding (last batch)
+    number: int = 0        # the batch's place in the loader's order
 
 
 def place_on_canvas(canvas_row: np.ndarray, img: np.ndarray
@@ -140,7 +143,14 @@ class SampleLoader:
     def num_samples(self):
         return len(self.order)
 
-    def _make_batch(self, idxs: Sequence[int]) -> SampleBatch:
+    def _make_batch(self, idxs: Sequence[int],
+                    number: int = 0) -> SampleBatch:
+        """The batch of dataset positions `idxs`, the `number`-th of the
+        loader's order."""
+        with span("loader.decode", key=number):
+            return self._decode(idxs, number)
+
+    def _decode(self, idxs: Sequence[int], number: int) -> SampleBatch:
         b = self.batch_size
         canv = np.zeros((b, self.canvas, self.canvas, 3), np.uint8)
         hs = np.full((b,), 1, np.int32)
@@ -194,7 +204,7 @@ class SampleLoader:
                         canv = np.ascontiguousarray(canv[:, :c, :c])
                     break
         return SampleBatch(canv, hs, ws, labels, indices,
-                           pad=b - len(idxs))
+                           pad=b - len(idxs), number=number)
 
     def __iter__(self) -> Iterator[SampleBatch]:
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
@@ -204,11 +214,12 @@ class SampleLoader:
         def worker():
             tf = self.transform or (lambda b: b)
             try:
-                for s in range(0, len(self.order), self.batch_size):
+                for k, s in enumerate(range(0, len(self.order),
+                                            self.batch_size)):
                     q.put(tf(self._make_batch(
-                        self.order[s: s + self.batch_size])))
-                for _ in range(self.total_batches - self._own_batches):
-                    q.put(tf(self._make_batch([])))  # all-padding filler
+                        self.order[s: s + self.batch_size], k)))
+                for k in range(self._own_batches, self.total_batches):
+                    q.put(tf(self._make_batch([], k)))  # all-padding filler
             except BaseException as e:  # surface decode errors to the caller
                 failure.append(e)
             finally:

@@ -15,6 +15,7 @@ runs the plain versions of the kernels on the CPU.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import sys
@@ -22,6 +23,8 @@ from typing import List
 
 import numpy as np
 import torch
+
+from .utils.profiling import span
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 # steps dispatched before the oldest one's results are read
@@ -134,14 +137,26 @@ def predict_directory(cfg, classnames, *, device, dataset=None,
             }) + "\n")
             n_written += 1
 
+    # spans (utils/profiling.py) keyed by the step: the batch's place in
+    # the loader's order
     in_flight = []
-    for batch, moved in loader:
-        in_flight.append((batch, run_step(on_current_stream(moved,
-                                                            device))))
+    batches = iter(loader)
+    for step in itertools.count():
+        with span("predict.loader_wait", key=step):
+            item = next(batches, None)
+        if item is None:
+            break
+        batch, moved = item
+        with span("predict.dispatch", key=step):
+            in_flight.append((step, batch, run_step(
+                on_current_stream(moved, device))))
         if len(in_flight) > IN_FLIGHT:
-            drain(*in_flight.pop(0))
-    for item in in_flight:
-        drain(*item)
+            done, batch, pending = in_flight.pop(0)
+            with span("predict.drain", key=done):
+                drain(batch, pending)
+    for done, batch, pending in in_flight:
+        with span("predict.drain", key=done):
+            drain(batch, pending)
     out.flush()
     return n_written
 

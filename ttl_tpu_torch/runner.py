@@ -78,6 +78,7 @@ from .parallel.mesh import DATA_AXIS, Mesh, make_mesh, replicate, shard_params
 from .utils.checkpoint import (apply_cocoop_ckpt, apply_prompt_ckpt,
                                load_prompt_state_dict)
 from .utils.meters import AverageMeter, ProgressMeter, Summary
+from .utils.profiling import span
 
 
 def load_model(cfg: TTLConfig, device):
@@ -179,6 +180,10 @@ def _make_upload(cfg: TTLConfig, device, batch_size: int,
     copy_stream = torch.cuda.Stream(device) if on_card and overlap else None
 
     def upload(b) -> DeviceBatch:
+        with span("loader.upload", key=b.number):
+            return copy(b)
+
+    def copy(b) -> DeviceBatch:
         host = DeviceBatch(
             torch.from_numpy(b.canvases), torch.from_numpy(b.heights),
             torch.from_numpy(b.widths), sample_draws(cfg, b.indices),

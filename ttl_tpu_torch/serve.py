@@ -32,6 +32,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import io
+import itertools
 import json
 import os
 import queue
@@ -60,6 +61,7 @@ from .parallel.mesh import (DATA_AXIS, check_mesh_shape, make_mesh,
 from .predict import softmax_np
 from .runner import (full_f32_products, load_model, make_adapters0,
                      sample_draws)
+from .utils.profiling import record, span
 
 # an idle server's other ranks wait in a broadcast for rank 0's next step:
 # the process group's timeout bounds that wait
@@ -198,9 +200,11 @@ class TTLPredictor:
         with self._lock, self._on_device():
             def put(x):
                 return torch.as_tensor(x).to(self.device)
+            with span("serve.upload"):
+                inputs = (put(canv), put(hs), put(ws),
+                          {k: put(t) for k, t in draws.items()})
             res = self.step_fn(self.params, self.text_cls, self.adapters0,
-                               put(canv), put(hs), put(ws),
-                               {k: put(t) for k, t in draws.items()})
+                               *inputs)
         if self._ranks == 1:
             return res
         group = self.mesh.data_group
@@ -344,13 +348,17 @@ class MicroBatcher:
         # snapshot (HTTP threads) both run under _m_lock - iterating a
         # deque while another thread appends raises RuntimeError
         self._lat_ms: deque = deque(maxlen=512)
+        # request and step ids, the keys of the spans (utils/profiling.py)
+        self._request_ids = itertools.count()
+        self._step_ids = itertools.count()
         t = threading.Thread(target=self._loop, daemon=True)
         t.start()
 
     def submit(self, blob: bytes) -> Future:
         fut: Future = Future()
         try:
-            self.q.put_nowait((blob, fut, time.time()))
+            self.q.put_nowait((blob, fut, time.time(),
+                               next(self._request_ids)))
         except queue.Full:
             with self._m_lock:
                 self.shed += 1
@@ -394,10 +402,11 @@ class MicroBatcher:
                 self.failed += 1
 
     def _resolve(self, pending):
-        futs, handle = pending
+        futs, handle, step = pending
         try:
             t0 = time.time()
-            results = self.predictor.collect(handle)
+            with span("serve.collect", key=step):
+                results = self.predictor.collect(handle)
         except Exception as e:  # the device step failed
             self._fail(futs, e)
             return
@@ -423,36 +432,51 @@ class MicroBatcher:
                 self._resolve(pending)
                 pending = None
                 continue
+            step = next(self._step_ids)
+            self._queued(first, step)
             group = [first]
-            deadline = time.time() + self.max_delay
-            while len(group) < s:
-                left = deadline - time.time()
-                if left <= 0:
-                    break
-                try:
-                    group.append(self.q.get(timeout=left))
-                except queue.Empty:
-                    break
+            with span("serve.gather", key=step):
+                deadline = time.time() + self.max_delay
+                while len(group) < s:
+                    left = deadline - time.time()
+                    if left <= 0:
+                        break
+                    try:
+                        group.append(self.q.get(timeout=left))
+                    except queue.Empty:
+                        break
+                    self._queued(group[-1], step)
             images, futs = [], []
-            for blob, fut, ts in group:
-                try:
-                    images.append(np.asarray(
-                        Image.open(io.BytesIO(blob)).convert("RGB")))
-                    futs.append((fut, ts))
-                except Exception as e:  # a malformed image fails alone
-                    fut.set_exception(e)
-                    with self._m_lock:
-                        self.failed += 1
+            with span("serve.decode", key=step):
+                for blob, fut, ts, _ in group:
+                    try:
+                        images.append(np.asarray(
+                            Image.open(io.BytesIO(blob)).convert("RGB")))
+                        futs.append((fut, ts))
+                    except Exception as e:  # a malformed image fails alone
+                        fut.set_exception(e)
+                        with self._m_lock:
+                            self.failed += 1
             if not images:
                 continue
             try:
-                handle = self.predictor.dispatch(images)
+                # the predictor's spans (upload, the fused step's) take
+                # the step's key from this one
+                with span("serve.dispatch", key=step):
+                    handle = self.predictor.dispatch(images)
             except Exception as e:  # the device step failed
                 self._fail(futs, e)
                 continue
             if pending is not None:
                 self._resolve(pending)
-            pending = (futs, handle)
+            pending = (futs, handle, step)
+
+    @staticmethod
+    def _queued(item, step: int) -> None:
+        """A request's time in the queue, submit to the batcher's take."""
+        _, _, ts, request = item
+        record("serve.queued", int(ts * 1e9), time.time_ns(), key=request,
+               step=step)
 
 
 def serve(predictor: TTLPredictor, host: str = "127.0.0.1",
