@@ -29,8 +29,9 @@ One result line, JSON, exactly once. Its stages, in order:
 `device` names the card, its power limit (nvidia-smi) and the number of
 ranks; `launches` holds the kernel launches of the first step of each
 stage. On the default attention route a card run checks them (ViT-B/16: K1
-15 and K2 3 a step, and K5 54 in the int8 stage) and fails otherwise: no
-stage gives way to a plain version.
+15 and K2 3 a step, K6 36 with `linear`'s epilogue in the frozen prefix,
+and in the int8 stage K5 54 and K6 0) and fails otherwise: no stage gives
+way to a plain version.
 
 A watchdog thread prints what was measured, with "watchdog_timeout": true,
 once the run is TTL_BENCH_WATCHDOG_GRACE_S (default 60 s) past its budget,
@@ -66,6 +67,7 @@ from ttl_tpu_torch.models.prompts import build_text_classifier, prompt_tokens
 from ttl_tpu_torch.models.zoo import get_arch
 from ttl_tpu_torch.ops import attention as fa
 from ttl_tpu_torch.ops import quant as tq
+from ttl_tpu_torch.ops.ln_matmul import ln_matmul
 from ttl_tpu_torch.ops.lora import init_adapters
 from ttl_tpu_torch.parallel.eval import make_count_fn
 from ttl_tpu_torch.parallel.mesh import (make_mesh, replicate, shard_batch,
@@ -236,23 +238,27 @@ def step_launches(step, i: int = 0) -> dict:
     it, read just after."""
     fa.reset_launch_counts()
     tq.linear_q.launches = 0
+    ln_matmul.launches = ln_matmul.linear_launches = 0
     step(i).tolist()
     return {"K1": fa.attention_bshd.fwd_launches,
             "K2": fa.attention_bshd.bwd_launches,
-            "K5": tq.linear_q.launches}
+            "K5": tq.linear_q.launches, "K6": ln_matmul.launches,
+            "K6 linear": ln_matmul.linear_launches}
 
 
 def expected_launches(cfg, clip_cfg) -> dict:
     """The launches of one image-LoRA step of a ViT on the default route:
     K1 in each prefix layer, in the window at every update step and once
     more for the clean view; K2 in the window at every update step; K5 in
-    the 6 linears of each int8 layer."""
+    the 6 linears of each int8 layer; K6, with `linear`'s epilogue, in q, k,
+    v and fc1 of each full-precision prefix layer."""
     lo, hi = resolve_layer_range(cfg, clip_cfg)
     window, steps = hi - lo + 1, effective_update_steps(cfg)
     int8 = (tq.quant_prefix_len(cfg, clip_cfg) if cfg.prefix_quant == "int8"
             else 0)
     return {"K1": lo + window * (steps + 1), "K2": window * steps,
-            "K5": 6 * int8}
+            "K5": 6 * int8, "K6": 4 * (lo - int8),
+            "K6 linear": 4 * (lo - int8)}
 
 
 def check_launches(stage: str, got: dict, cfg, clip_cfg, device) -> None:

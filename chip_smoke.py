@@ -69,13 +69,18 @@ per source, side by side), then:
    plain versions under the same route; beside each, as a yardstick held to
    nothing, the same sample through the einsum route on the card;
 18. K6, layernorm folded into the linear behind it, against
-   `ln_matmul_plain` on the card at the CoCoOp path's shapes
-   ([106496, 768] x [768, 768] and x [768, 3072] bf16), the text width, one
-   f32 shape and a ragged M with rows of zeros, with `F.layer_norm` followed
-   by `F.linear` (a pair of library calls, on no path) and the package's own
-   `layer_norm` + `linear` timed beside it, and the achieved TFLOP/s; ptxas
-   on its kernels (no spills in the wgmma ones); at fc1 two calls on the
-   same inputs must give the same bits;
+   `ln_matmul_plain` on the card at the prefix's shapes ([106496, 768] x
+   [768, 768] and x [768, 3072] bf16 at ViT-B/16, [139264, 1024] x [1024,
+   1024] and x [1024, 4096] at ViT-L/14), the text width, one f32 shape and
+   a ragged M with rows of zeros, with each epilogue: the f32 one (CoCoOp's)
+   with `F.layer_norm` followed by `F.linear` (a pair of library calls, on
+   no path) and the package's own `layer_norm` + `linear` timed beside it;
+   `linear`'s (with QuickGELU where N = 4K, as at fc1) with the chain it
+   stands for on the frozen prefix, `layer_norm` -> `linear` (->
+   `quick_gelu`), timed beside it, the outputs that differ from the plain
+   version under K6_LINEAR_SHARE; the achieved TFLOP/s; ptxas on its
+   kernels (no spills in the wgmma ones); at fc1 two calls on the same
+   inputs must give the same bits;
 19. `--cocoop` on the default route through `runner.run`: the frozen vision
    tower over all 12 layers and 64 views through K6 (48 launches per batch)
    and K1 (12), no other kernel;
@@ -190,6 +195,14 @@ per source, side by side), then:
 39. `bench_torch.py` as two processes on cuda:0 over gloo (RANK 0 and 1,
    WORLD_SIZE 2, LOCAL_RANK 0, TTL_BENCH_S=2): the aggregate stage, rank 0
    alone printing, with the aggregate's launches.
+
+K6 with `linear`'s epilogue ("K6 linear" in the launch counts, which "K6"
+counts too) runs q, k, v and fc1 of every full-precision vision layer that
+`vision_prefix` runs without gradient: 36 launches a batch on ViT-B/16's
+adapted paths (the 9-layer prefix; 72 with PLPD's counterfactual), 48 where
+the whole tower runs so (text-LoRA, TPT, zero-shot without int8, `--tta_steps
+0`), none over int8 layers, a ResNet or CoCoOp's tower (the f32 epilogue).
+The launch counts above name K1-K5; each phase also checks K6's.
 
 Every device time comes from `ttl_tpu_torch/utils/profiling.py`'s reading
 of a torch.profiler trace (`profiled`), the reader `--profile` uses.
@@ -347,13 +360,21 @@ K6_FC1 = (K6_ROWS, 768, 3072, torch.bfloat16)
 K6_SHAPES = [(K6_ROWS, 768, 768, torch.bfloat16), K6_FC1,
              (1600 * 32, 512, 2048, torch.bfloat16),
              (8192, 768, 768, torch.float32),
-             (10007, 768, 3072, torch.bfloat16)]
+             (10007, 768, 3072, torch.bfloat16),
+             # ViT-L/14's prefix: 512 views of 272 padded tokens, 64-row tiles
+             (512 * 272, 1024, 1024, torch.bfloat16),
+             (512 * 272, 1024, 4096, torch.bfloat16)]
 # K6 vs plain. bf16: both round the normalised row and the output once, but
 # the statistics and the product sum in another order, so a normalised value
 # or an output may round the other way: one bf16 step of the output, which
 # at the top of its range is at most 2^-7 of the largest output. f32: the
 # order of the sums only, 1e-5 of the output's scale.
 K6_BOUND = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+# K6 with `linear`'s epilogue vs plain: the same rounding points, so an
+# output differs only where the order of the sums moved a value across a
+# rounding boundary (2e-4 of them at the prefix's shapes on an H100);
+# the f32 epilogue's single rounding moves about a quarter
+K6_LINEAR_SHARE = 0.01
 # The CoCoOp sample of the card-against-CPU run. With random weights the
 # features barely depend on the image and the two best of the 200 classes
 # lie close: of the images made from seeds 1 to 12, this one keeps them
@@ -749,10 +770,14 @@ def phase_k6(tlm) -> dict:
     library calls that computes the same function (F.layer_norm, F.linear;
     w transposed to F.linear's layout outside the timing) and the package's
     own layer_norm + linear, the pair K6 stands in for, timed beside it;
-    ptxas's registers, shared memory and spills of its kernels first (the
-    wgmma kernels may spill nothing), the achieved rate at every shape, and
-    at fc1 a second call on the same inputs, which must give the same
-    bits."""
+    then K6 with `linear`'s epilogue (QuickGELU too where N = 4K) against
+    ln_matmul_plain's, which sums the product in f32 (no reduced-precision
+    reduction), within K6_BOUND and with under K6_LINEAR_SHARE of the
+    outputs differing, and the chain it stands for on the frozen prefix
+    (layer_norm -> linear -> quick_gelu) timed beside it; ptxas's
+    registers, shared memory and spills of its kernels first (the wgmma
+    kernels may spill nothing), the achieved rate at every shape, and at
+    fc1 a second call on the same inputs, which must give the same bits."""
     from ttl_tpu_torch.models.clip import layer_norm, linear
     from ttl_tpu_torch.ops import _build
     F = torch.nn.functional
@@ -819,8 +844,55 @@ def phase_k6(tlm) -> dict:
             f"{ms / r['bound_ms']:.2f}x of it), F.layer_norm + F.linear "
             f"{library_ms:.4f} ms, the package's layer_norm + linear "
             f"{pair_ms:.4f} ms")
-        del x, w, wt, got, want
+        del got, want
+        r.update(k6_linear(tlm, x, scale, bias, w, b.to(dtype), shape))
+        del x, w, wt
     return results
+
+
+def k6_linear(tlm, x, scale, bias, w, b, shape: str) -> dict:
+    """phase_k6's `linear`-epilogue check and times at one shape; b in x's
+    dtype."""
+    from ttl_tpu_torch.models.clip import layer_norm, linear, quick_gelu
+    k, n = w.shape
+    epi = {"epilogue": "linear", "quick_gelu": n == 4 * k}
+    before = (tlm.ln_matmul.launches, tlm.ln_matmul.linear_launches)
+    got = tlm.ln_matmul(x, scale, bias, w, b, 1e-5, **epi)
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        want = tlm.ln_matmul_plain(x, scale, bias, w, b, 1e-5, **epi)
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+    torch.cuda.synchronize()
+    if (tlm.ln_matmul.launches, tlm.ln_matmul.linear_launches) != (
+            before[0] + 1, before[1] + 1):
+        raise AssertionError(f"K6 linear at {shape}: no launch was counted")
+    diff = (got.float() - want.float()).abs()
+    err, share = diff.max().item(), (diff > 0).float().mean().item()
+    limit = K6_BOUND[x.dtype] * max(1.0, want.float().abs().max().item())
+    if not torch.isfinite(got).all() or not err <= limit or (
+            x.dtype == torch.bfloat16 and not share < K6_LINEAR_SHARE):
+        raise AssertionError(f"K6 linear at {shape} disagrees with its plain "
+                             f"version: {err} > {limit} or {share} of the "
+                             f"outputs differ")
+    del got, want, diff
+    ms = median_ms(lambda: tlm.ln_matmul(x, scale, bias, w, b, 1e-5, **epi))
+    ln_p, lin_p = {"scale": scale, "bias": bias}, {"w": w, "b": b}
+    act = quick_gelu if epi["quick_gelu"] else (lambda y: y)
+    chain_ms = median_ms(lambda: act(linear(layer_norm(x, ln_p, 1e-5),
+                                            lin_p)))
+    m = x.shape[0]
+    log(f"K6 {shape}, `linear`'s epilogue"
+        f"{' + QuickGELU' if epi['quick_gelu'] else ''}: max_abs_err "
+        f"{err:.3e} (bound {limit:.3e}), {100 * share:.4f} % of the outputs "
+        f"differ, kernel {ms:.4f} ms ({2e-9 * m * k * n / ms:.1f} TFLOP/s), "
+        f"the chain layer_norm -> linear"
+        f"{' -> quick_gelu' if epi['quick_gelu'] else ''} {chain_ms:.4f} ms")
+    return {"linear_max_abs_err": err, "linear_share_differ": share,
+            "linear_ms": ms, "linear_chain_ms": chain_ms,
+            "linear_gelu": epi["quick_gelu"]}
 
 
 class SyntheticImages:
@@ -915,6 +987,12 @@ class StepProbe:
                 raise AssertionError("non-finite logits")
 
 
+# K6's launches a batch with `linear`'s epilogue (and in "K6" too): the
+# 9-layer frozen prefix at ViT-B/16, and the whole 12-layer tower
+K6_PREFIX = {"K6": 36, "K6 linear": 36}
+K6_TOWER = {"K6": 48, "K6 linear": 48}
+
+
 def launch_counts(fa, tq) -> dict:
     from ttl_tpu_torch.ops.ln_matmul import ln_matmul
     return {"K1": fa.attention_bshd.fwd_launches,
@@ -923,7 +1001,8 @@ def launch_counts(fa, tq) -> dict:
             "K3 bwd": fa.attention_per_head.bwd_launches,
             "K4 fwd": fa.attention_heads.fwd_launches,
             "K4 bwd": fa.attention_heads.bwd_launches,
-            "K5": tq.linear_q.launches, "K6": ln_matmul.launches}
+            "K5": tq.linear_q.launches, "K6": ln_matmul.launches,
+            "K6 linear": ln_matmul.linear_launches}
 
 
 @contextlib.contextmanager
@@ -950,7 +1029,7 @@ def reset_counts(fa, tq) -> None:
     from ttl_tpu_torch.ops.ln_matmul import ln_matmul
     fa.reset_launch_counts()
     tq.linear_q.launches = 0
-    ln_matmul.launches = 0
+    ln_matmul.launches = ln_matmul.linear_launches = 0
 
 
 def step_factory(cfg) -> str:
@@ -1347,7 +1426,8 @@ def phase_plpd(fa, tq) -> tuple:
     against CPU, and the launches with the int8 prefix. Returns both paths'
     results."""
     cfg = config(*PLPD_FLAGS)
-    path = phase_path(fa, tq, "PLPD", cfg, {"K1": 27, "K2": 3})
+    path = phase_path(fa, tq, "PLPD", cfg,
+                      {"K1": 27, "K2": 3, "K6": 72, "K6 linear": 72})
     phase_card_vs_cpu(cfg, "PLPD", "PLPD")
     int8 = phase_path(fa, tq, "PLPD, int8 prefix",
                       config("--prefix_quant", "int8", *PLPD_FLAGS),
@@ -1361,7 +1441,8 @@ def phase_augmix(fa, tq) -> dict:
     against CPU."""
     from ttl_tpu_torch.ops.augmix import DEFAULT_AUG_LIST
     cfg = config("--aug_list", ",".join(DEFAULT_AUG_LIST))
-    path = phase_path(fa, tq, "AugMix", cfg, {"K1": 15, "K2": 3})
+    path = phase_path(fa, tq, "AugMix", cfg, {"K1": 15, "K2": 3,
+                                              **K6_PREFIX})
     aug_ms, plain_ms = view_maker_ms(cfg)
     log(f"AugMix view maker, one batch of {cfg.sample_batch} x "
         f"{cfg.batch_size} views (render_views, device): {aug_ms:.4f} ms "
@@ -1589,7 +1670,7 @@ def phase_checkpoints(fa, tq, build_dir) -> dict:
     runs = {"RN50 prompt tuning from a checkpoint":
             (RN50_PROMPT_FLAGS, "heads", {"K4 fwd": 48, "K4 bwd": 12}),
             "main path from a checkpoint":
-            ((), None, {"K1": 15, "K2": 3})}
+            ((), None, {"K1": 15, "K2": 3, **K6_PREFIX})}
     out = {}
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         rn_sd = openai_rn_state_dict(seeded_weights("RN50", SEED + 31))
@@ -1744,11 +1825,12 @@ def phase_predict(fa, tq, build_dir) -> dict:
     from ttl_tpu_torch.data.classnames import resolve_classnames
     from ttl_tpu_torch.predict import IN_FLIGHT
     classes = list(resolve_classnames("I"))
-    adapted = {"K1": 18, "K2": 3}
+    adapted = {"K1": 18, "K2": 3, **K6_PREFIX}
     runs = {"predict": ((), adapted),
-            "predict, --tta_steps 0": (("--tta_steps", "0"), {"K1": 12}),
+            "predict, --tta_steps 0": (("--tta_steps", "0"),
+                                       {"K1": 12, **K6_TOWER}),
             "predict, int8 prefix": (("--prefix_quant", "int8"),
-                                     {**adapted, "K5": 54})}
+                                     {"K1": 18, "K2": 3, "K5": 54})}
     out = {}
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         images = os.path.join(tmp, "images")
@@ -1991,9 +2073,13 @@ def phase_bongard(fa, tq, build_dir) -> dict:
     import tempfile
     from ttl_tpu_torch import runner
     from ttl_tpu_torch.adapt import bongard
-    runs = {"Bongard": ((), {"K1": 27, "K2": 3}),
-            "Bongard, again": ((), {"K1": 27, "K2": 3}),
-            "Bongard zero-shot": (("--tta_steps", "0"), {"K1": 24}),
+    # K6: the support encoder's whole tower (48) and the queries' prefix
+    # (36), or at --tta_steps 0 the queries' whole tower too
+    adapted = {"K1": 27, "K2": 3, "K6": 84, "K6 linear": 84}
+    runs = {"Bongard": ((), adapted),
+            "Bongard, again": ((), adapted),
+            "Bongard zero-shot": (("--tta_steps", "0"),
+                                  {"K1": 24, "K6": 96, "K6 linear": 96}),
             "Bongard, RN50 zero-shot": (("-a", "RN50", "--tta_steps", "0"),
                                         {})}
     n_ep = 4
@@ -2101,7 +2187,8 @@ def phase_profile(fa, tq, build_dir, main_rate: float) -> dict:
         rows = op_stats(log_dir, top=10 ** 6)
         busy_us, union_us = device_busy_us(log_dir), device_union_us(log_dir)
     n = len(probe.starts)
-    expect = {**dict.fromkeys(counts, 0), "K1": 15 * n, "K2": 3 * n}
+    expect = {**dict.fromkeys(counts, 0), "K1": 15 * n, "K2": 3 * n,
+              **{k: v * n for k, v in K6_PREFIX.items()}}
     log(f"--profile: {n} batches, launches {counts}, top1/top5 {res['A']}, "
         f"whole call {seconds:.1f} s; {traces}")
     if n != 10 or counts != expect or len(traces) != 1:
@@ -2364,7 +2451,8 @@ def phase_data_parallel(build_dir, cards: int = 1) -> dict:
     lines = []
     for name, run in ranks.items():
         expect = {**dict.fromkeys(run["launches"], 0), "K1": 15 * n_local,
-                  "K2": 3 * n_local}
+                  "K2": 3 * n_local,
+                  **{k: v * n_local for k, v in K6_PREFIX.items()}}
         summary = "Result Summary" in run["stdout"]
         if run["results"] != single["results"] or run["launches"] != expect \
                 or summary != (name == "rank 0") \
@@ -2514,7 +2602,8 @@ def phase_model_axis(build_dir, cards: int = 1, seed: int = SEED + 92,
     errors = {"logits": 0.0, "gradient": 0.0}
     for name, run in ranks.items():
         expect = {**dict.fromkeys(run["launches"], 0), "K1": 15 * n_batches,
-                  "K2": 3 * n_batches}
+                  "K2": 3 * n_batches,
+                  **{k: v * n_batches for k, v in K6_PREFIX.items()}}
         summary = "Result Summary" in run["stdout"]
         got = np.asarray(run["logits"])
         if run["results"] != single["results"] or run["launches"] != expect \
@@ -2747,8 +2836,8 @@ def phase_tools(build_dir) -> dict:
 
 # launches a step of bench_torch.py's stages at ViT-B/16 (and of
 # torch_bench_arches.py's ViT-B/32 row: 12 layers, the same window)
-BENCH_LAUNCHES = {"K1": 15, "K2": 3, "K5": 0}
-BENCH_INT8_LAUNCHES = {"K1": 15, "K2": 3, "K5": 54}
+BENCH_LAUNCHES = {"K1": 15, "K2": 3, "K5": 0, **K6_PREFIX}
+BENCH_INT8_LAUNCHES = {"K1": 15, "K2": 3, "K5": 54, "K6": 0, "K6 linear": 0}
 
 
 def json_lines(text: str) -> list:
@@ -2915,7 +3004,7 @@ def main() -> int:
     fwd = phase_forward(fa)
     bwd = phase_backward(fa)
     main_path = phase_path(fa, tq, "main path", config(),
-                           {"K1": 15, "K2": 3, "K5": 0})
+                           {"K1": 15, "K2": 3, "K5": 0, **K6_PREFIX})
     main_fp = phase_card_vs_cpu(config(), "main path", "main path")
     other = phase_other_geometries(fa)
     k5 = phase_k5(tq)
@@ -2938,12 +3027,13 @@ def main() -> int:
     prompt_cfg = config("--lora_encoder", "prompt")
     with attention_route(fa, "per_head"):
         text_path = phase_path(fa, tq, "text-LoRA, per_head route", text_cfg,
-                               {"K3 fwd": 36, "K3 bwd": 3})
+                               {"K3 fwd": 36, "K3 bwd": 3, **K6_TOWER})
         _, text_cpu = phase_card_vs_cpu(text_cfg, "text-LoRA, per_head route",
                                         "text-LoRA")
     with attention_route(fa, "heads"):
         prompt_path = phase_path(fa, tq, "prompt tuning, heads route",
-                                 prompt_cfg, {"K4 fwd": 60, "K4 bwd": 12})
+                                 prompt_cfg, {"K4 fwd": 60, "K4 bwd": 12,
+                                              **K6_TOWER})
         _, prompt_cpu = phase_card_vs_cpu(prompt_cfg,
                                           "prompt tuning, heads route",
                                           "prompt tuning")
@@ -2951,7 +3041,7 @@ def main() -> int:
     log_einsum_yardstick(fa, prompt_cfg, "prompt tuning", prompt_cpu)
     tpt_lora_cfg = config("--deyo_selection", "False")
     tpt_lora = phase_path(fa, tq, "TPT on LoRA", tpt_lora_cfg,
-                          {"K1": 18, "K2": 3}, timed=False)
+                          {"K1": 18, "K2": 3, **K6_PREFIX}, timed=False)
     phase_card_vs_cpu(tpt_lora_cfg, "TPT on LoRA", "TPT on LoRA")
     k6 = phase_k6(tlm)
     cocoop_cfg = config("--cocoop")
@@ -3095,9 +3185,13 @@ def main() -> int:
          "source": "ttl_tpu_torch/csrc/ln_matmul.cu",
          "replaces": "ttl_tpu/ops/ln_matmul.py:38",
          "launches": cocoop_path["launches"]["K6"],
+         "linear_launches": main_path["launches"]["K6 linear"],
          **{**k6_fc1,
-            "max_abs_err": max(r["max_abs_err"] for r in k6.values())},
+            "max_abs_err": max(r["max_abs_err"] for r in k6.values()),
+            "linear_max_abs_err": max(r["linear_max_abs_err"]
+                                      for r in k6.values())},
          "launches_by_path": by_path("K6"),
+         "linear_launches_by_path": by_path("K6 linear"),
          "shapes": {f"[{m}, {k}] x [{k}, {n}] {d}": r
                     for (m, k, n, d), r in k6.items()}},
     ]

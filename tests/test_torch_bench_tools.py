@@ -57,7 +57,8 @@ def test_bench_arches_rows_on_the_cpu(tmp_path):
     for row in (image, text):
         assert row["arch"] == "test-tiny" and row["wall_sps"] > 0
         assert row["layer_range"] == [1, 3]  # the last 3 of 4 layers
-        assert row["launches"] == {"K1": 0, "K2": 0, "K5": 0}
+        assert row["launches"] == {"K1": 0, "K2": 0, "K5": 0, "K6": 0,
+                                   "K6 linear": 0}
         assert "busy_sps" not in row and "error" not in row
 
 

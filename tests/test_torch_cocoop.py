@@ -263,14 +263,16 @@ def test_fused_cocoop_matches_jax(model):
 
 def test_cocoop_vision_tower_takes_the_fused_route(model, monkeypatch):
     """The step's vision tower is frozen: four fused layernorm + linear
-    calls a layer over all S*V views at once, none from the text tower."""
+    calls a layer over all S*V views at once, none from the text tower,
+    each with the JAX `ln_matmul`'s epilogue (f32 bias, one rounding)."""
     params, views = model
     shapes = []
     real = tclip.ln_matmul
 
-    def counting(x, *args):
+    def counting(x, *args, **kw):
+        assert kw == {"epilogue": "f32", "quick_gelu": False}
         shapes.append(tuple(x.shape))
-        return real(x, *args)
+        return real(x, *args, **kw)
 
     monkeypatch.setattr(tclip, "ln_matmul", counting)
     tco.make_cocoop_adapt_fn(TEST_TINY, _cfg(tta_steps=1))(
@@ -492,7 +494,7 @@ def test_runner_cocoop_with_whole_int8_tower_makes_no_fused_call(
     calls = []
     real = tclip.ln_matmul
     monkeypatch.setattr(tclip, "ln_matmul",
-                        lambda *a: calls.append(1) or real(*a))
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
     rng = np.random.default_rng(0)
     ds = ArrayDataset(rng.integers(0, 256, (3, 40, 56, 3), dtype=np.uint8),
                       np.array([3, 1, 4]))

@@ -19,6 +19,10 @@ Inputs are made with numpy from a seed and go through both sides.
   tests/test_torch_clip.py; bf16 within a stated number of bf16 steps.
 - `fused_ln=True` with adapters or where a gradient would flow raises;
   with the whole tower int8 the fused call is reached 0 times.
+- The "linear" epilogue of the plain version is `linear(layer_norm(x))`
+  (and `quick_gelu` of it) bit for bit; `vision_prefix` folds its frozen
+  layers with it wherever no gradient reaches them (four calls a layer),
+  and nowhere else.
 - K6's bf16 body emulated on the CPU (`emulate_k6`): its shared-memory
   layouts against what wgmma's descriptors read, and its walk over the
   tiles against `ln_matmul_plain` and JAX's reference.
@@ -132,6 +136,42 @@ def test_ln_matmul_cuda_refuses_cpu_tensors():
         tlm.ln_matmul_cuda(x[0], scale, bias, w, b)
     with pytest.raises(ValueError, match="must be one of"):
         tlm.ln_matmul_cuda(x.half(), scale, bias, w.half(), b)
+
+
+# ------------------------------------------------- the "linear" epilogue
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("k,n", [(768, 768), (768, 3072), (768, 4096),
+                                 (1024, 768), (1024, 3072), (1024, 4096)])
+def test_plain_linear_epilogue_is_layer_norm_then_linear(k, n, gelu, dtype):
+    """The plain version with the "linear" epilogue gives the bits of the
+    package's own layer_norm -> linear (-> quick_gelu), at the prefix's
+    widths; the bias stored in f32, rounded to x's dtype as `linear` does."""
+    arrays = _inputs(5, k, n, seed=k + n, zero_rows=(2,))
+    x, scale, bias, w, b = (torch.from_numpy(a) for a in arrays)
+    x, w = x.to(dtype).reshape(1, 5, k), w.to(dtype)
+    got = tlm.ln_matmul_plain(x, scale, bias, w, b, 1e-5, "linear", gelu)
+    want = tclip.linear(tclip.layer_norm(x, {"scale": scale, "bias": bias},
+                                         1e-5), {"w": w, "b": b})
+    if gelu:
+        want = tclip.quick_gelu(want)
+    assert got.dtype == dtype and got.shape == (1, 5, n)
+    assert torch.equal(got, want)
+    assert torch.equal(tlm.ln_matmul(x, scale, bias, w, b, 1e-5,
+                                     epilogue="linear", quick_gelu=gelu),
+                       want)
+
+
+def test_epilogue_names_are_checked():
+    x, scale, bias, w, b = (torch.from_numpy(a)
+                            for a in _inputs(4, 32, 48, seed=7))
+    with pytest.raises(ValueError, match="epilogue"):
+        tlm.ln_matmul(x, scale, bias, w, b, epilogue="bf16")
+    with pytest.raises(ValueError, match="quick_gelu only"):
+        tlm.ln_matmul(x, scale, bias, w, b, quick_gelu=True)
+    with pytest.raises(ValueError, match="epilogue"):
+        tlm.ln_matmul_cuda(x, scale, bias, w, b, epilogue="bf16")
 
 
 # ------------------------------------------------- the towers' fused_ln route
@@ -248,9 +288,9 @@ def test_fused_ln_calls_per_layer_and_none_under_a_whole_int8_tower(
     calls = []
     real = tclip.ln_matmul
 
-    def counting(x, *args):
+    def counting(x, *args, **kw):
         calls.append(tuple(x.shape))
-        return real(x, *args)
+        return real(x, *args, **kw)
 
     monkeypatch.setattr(tclip, "ln_matmul", counting)
     tparams = params_from_numpy(params, "cpu")
@@ -269,6 +309,89 @@ def test_fused_ln_calls_per_layer_and_none_under_a_whole_int8_tower(
                                fused_ln=True)
     assert calls == []
     assert q.shape == fp.shape and torch.isfinite(q).all()
+
+
+def _counting(monkeypatch):
+    """Record (input shape, epilogue, quick_gelu) of every fused call the
+    towers make."""
+    calls = []
+    real = tclip.ln_matmul
+
+    def counting(x, *args, **kw):
+        calls.append((tuple(x.shape), kw.get("epilogue", "f32"),
+                      kw.get("quick_gelu", False)))
+        return real(x, *args, **kw)
+
+    monkeypatch.setattr(tclip, "ln_matmul", counting)
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vision_prefix_folds_four_calls_a_layer_without_gradient(
+        tiny, monkeypatch, dtype):
+    """Under no_grad each prefix layer makes four fused calls with the
+    "linear" epilogue (q, k, v; fc1 with QuickGELU), and the hidden state
+    is the unfused one's bit for bit."""
+    params, images = tiny
+    tparams = params_from_numpy(params["vision"], "cpu")
+    cfg, upto = TEST_TINY.vision, 3
+    x = torch.from_numpy(images)
+    unfused = tclip.vision_prefix(tparams, x.clone().requires_grad_(True),
+                                  cfg, upto=upto, compute_dtype=dtype)
+    calls = _counting(monkeypatch)
+    with torch.no_grad():
+        got = tclip.vision_prefix(tparams, x, cfg, upto=upto,
+                                  compute_dtype=dtype)
+    rows = (3, 32, cfg.hidden)
+    layer = [(rows, "linear", False)] * 3 + [(rows, "linear", True)]
+    assert calls == layer * upto
+    assert torch.equal(got, unfused.detach())
+
+
+def test_vision_prefix_makes_no_fused_call_where_a_gradient_reaches(
+        tiny, monkeypatch):
+    """An input that needs a gradient, or layer weights that do, keep the
+    prefix unfused; so does TTL_LN_STATS=ex2, whose variance K6 does not
+    compute."""
+    params, images = tiny
+    cfg = TEST_TINY.vision
+    x = torch.from_numpy(images)
+    calls = _counting(monkeypatch)
+    tparams = params_from_numpy(params["vision"], "cpu")
+    out = tclip.vision_prefix(tparams, x.clone().requires_grad_(True), cfg,
+                              upto=2, compute_dtype=torch.float32)
+    assert out.requires_grad and calls == []
+    trained = dict(tparams)
+    trained["layers"] = tclip.tree_map(
+        lambda t: t.clone().requires_grad_(True), tparams["layers"])
+    out = tclip.vision_prefix(trained, x, cfg, upto=2,
+                              compute_dtype=torch.float32)
+    assert out.requires_grad and calls == []
+    monkeypatch.setenv("TTL_LN_STATS", "ex2")
+    with torch.no_grad():
+        tclip.vision_prefix(tparams, x, cfg, upto=2,
+                            compute_dtype=torch.float32)
+    assert calls == []
+    monkeypatch.delenv("TTL_LN_STATS")
+    with torch.no_grad():   # the same weights fold where grad mode is off
+        tclip.vision_prefix(trained, x, cfg, upto=2,
+                            compute_dtype=torch.float32)
+    assert len(calls) == 8
+
+
+@pytest.mark.parametrize("n_q", [2, 4])
+def test_int8_prefix_layers_make_no_fused_call(tiny, monkeypatch, n_q):
+    """The int8 layers keep K5's linears: only the full-precision layers
+    after them fold (none where the whole prefix is int8)."""
+    params, images = tiny
+    tparams = tq.attach_prefix_quant(params_from_numpy(params, "cpu"), n_q)
+    calls = _counting(monkeypatch)
+    with torch.no_grad():
+        tclip.vision_prefix(tparams["vision"], torch.from_numpy(images),
+                            TEST_TINY.vision, upto=3,
+                            compute_dtype=torch.float32)
+    assert len(calls) == 4 * max(0, 3 - n_q)
+    assert all(epi == "linear" for _, epi, _ in calls)
 
 
 # ------------------------------------------------- K6's bf16 body, emulated
@@ -546,6 +669,22 @@ def test_k6_matches_plain_on_card(cuda_device, m, k, n, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", ["f32", "linear"])
+def test_k6_takes_a_transposed_weight(cuda_device, epilogue):
+    """A checkpoint's weights come in [out, in] and are viewed transposed:
+    `ln_matmul` gives K6 a row-major copy, the same bits as a row-major
+    weight."""
+    arrays = _inputs(300, 768, 768, seed=8)
+    x, scale, bias, w, b = (tensor_from_numpy(a, cuda_device) for a in arrays)
+    x, w = x.bfloat16(), w.bfloat16()
+    viewed = w.t().contiguous().t()
+    assert not viewed.is_contiguous()
+    got = tlm.ln_matmul(x, scale, bias, viewed, b, epilogue=epilogue)
+    want = tlm.ln_matmul(x, scale, bias, w, b, epilogue=epilogue)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 def test_k6_refuses_what_it_does_not_take(cuda_device):
     arrays = _inputs(8, 64, 48, seed=6)
     x, scale, bias, w, b = (tensor_from_numpy(a, cuda_device) for a in arrays)
@@ -562,3 +701,51 @@ def test_k6_refuses_what_it_does_not_take(cuda_device):
                            torch.zeros(8192, device=cuda_device),
                            torch.zeros(8192, 16, device=cuda_device),
                            torch.zeros(16, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (106496, 768, 768, torch.bfloat16),    # ViT-B/16's prefix: q, k, v
+    (106496, 768, 3072, torch.bfloat16),   # and fc1
+    (139264, 1024, 1024, torch.bfloat16),  # ViT-L/14's, 64-row tiles
+    (139264, 1024, 4096, torch.bfloat16),
+    (77, 48, 80, torch.bfloat16),          # K, N short of the tiles
+    (300, 256, 384, torch.float32),
+    (33, 768, 768, torch.float32),
+])
+def test_k6_linear_epilogue_matches_plain_on_card(cuda_device, m, k, n,
+                                                  dtype, gelu):
+    """The "linear" epilogue against the plain version, which on the card
+    is the package's own layer_norm -> linear (-> quick_gelu) with the
+    product summed in f32 (no reduced-precision reduction): only the order
+    of the sums differs. At bf16 a normalised value or a product that lies
+    at a rounding boundary may round the other way, which moves an output
+    by at most one bf16 step at the top of the output's range (2^-7 of the
+    largest, as K6's own test with its f32 epilogue); and such outputs stay
+    rare, under 1 % (the f32 epilogue's single rounding moves about a
+    quarter of them, so this holds the rounding points). f32: order only,
+    1e-5 of the scale."""
+    arrays = _inputs(m, k, n, seed=m + n, zero_rows=(0, m // 2))
+    x, scale, bias, w, b = (tensor_from_numpy(a, cuda_device) for a in arrays)
+    x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+    tlm.ln_matmul.launches = tlm.ln_matmul.linear_launches = 0
+    got = tlm.ln_matmul(x, scale, bias, w, b, epilogue="linear",
+                        quick_gelu=gelu)
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        want = tlm.ln_matmul_plain(x, scale, bias, w, b, 1e-5, "linear",
+                                   gelu).float()
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            reduced
+    torch.cuda.synchronize()
+    assert tlm.ln_matmul.launches == tlm.ln_matmul.linear_launches == 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.isfinite(got).all()
+    diff = (got.float() - want).abs()
+    rel = 2 * BF16_STEP if dtype == torch.bfloat16 else 1e-5
+    assert diff.max().item() <= rel * max(1.0, want.abs().max().item())
+    if dtype == torch.bfloat16:
+        assert (diff > 0).float().mean().item() < 0.01

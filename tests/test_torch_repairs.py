@@ -317,8 +317,12 @@ def test_fused_qkv_under_fused_ln_takes_one_product(model, monkeypatch):
     tparams = params_from_numpy(params, "cpu")["vision"]
     imgs = torch.from_numpy(views[0, :3])
     with torch.no_grad():
+        # the reference, q, k and v apart, folds with `linear`'s epilogue
+        # (the frozen tower's own route): four calls a layer
         plain = tclip.encode_image(tparams, imgs, TEST_TINY.vision,
                                    compute_dtype=torch.float32)
+        assert calls == [32, 32, 32, 128] * J_TINY.vision.layers
+        calls.clear()
         got = tclip.encode_image(tclip.fuse_qkv_params(tparams), imgs,
                                  TEST_TINY.vision,
                                  compute_dtype=torch.float32, fused_ln=True)

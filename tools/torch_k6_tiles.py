@@ -12,9 +12,10 @@ variant names the first five or more of them, in that order; the others are
 the source's. This script copies the source
 under `build/k6_tiles/`, rewrites those constants for each variant, builds
 each copy with nvcc side by side, checks each against `ln_matmul_plain`
-within `chip_smoke.K6_BOUND`, and times whole K6 calls with CUDA events at
-`chip_smoke.K6_SHAPES`' bf16 entries, in turns (variants forward, then
-backward). Each line names the rows a tile took at that shape.
+within `chip_smoke.K6_BOUND`, and times whole K6 calls (the f32 epilogue)
+with CUDA events at `chip_smoke.K6_SHAPES`' bf16 entries, in turns
+(variants forward, then backward). Each line names the rows a tile took at
+that shape.
 
 Run from the root of the repository, on a machine with the card and nvcc:
 
@@ -96,7 +97,7 @@ def write_variant(name: str) -> tuple[str, list[str]]:
 def load(lib: str) -> ctypes.CDLL:
     dll = ctypes.CDLL(lib)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dll.ttl_ln_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
+    dll.ttl_ln_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, p]
     dll.ttl_ln_matmul.restype = i
     return dll
 
@@ -105,7 +106,7 @@ def call(dll, x, scale, bias, w, b, out):
     m, k = x.shape
     rc = dll.ttl_ln_matmul(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(),
-        b.data_ptr(), out.data_ptr(), 1, m, k, out.shape[1], 1e-5,
+        b.data_ptr(), out.data_ptr(), 1, 0, m, k, out.shape[1], 1e-5,
         torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"CUDA error {rc}")

@@ -33,8 +33,19 @@ projection, which `encoder_layer` takes as one product (and, under
 With `fused_ln=True` (the frozen vision tower of the CoCoOp step, under
 `torch.no_grad()`), a layer's two layernorms fold into the linears behind
 them: q, k, v and fc1 each come from one `ops.ln_matmul.ln_matmul` call, K6
-on the card, four launches a layer. It is forward only: LoRA adapters or an
-input that a gradient would flow through raise.
+on the card, four launches a layer, with the JAX `ln_matmul`'s epilogue (the
+bias in f32, one rounding). It is forward only: LoRA adapters or an input
+that a gradient would flow through raise.
+
+`vision_prefix` folds its full-precision layers the same way wherever no
+gradient can reach them (`_frozen`: grad mode off, or neither the input nor
+the layers' weights need one; the TTL step's prefix runs under
+`torch.no_grad()`), with K6's "linear" epilogue: the product rounded and the
+bias added in the activation dtype as `linear` does, and at fc1 QuickGELU at
+the points where `quick_gelu` rounds. That is the function of
+`layer_norm` -> `linear` -> `quick_gelu`, the same bits on the CPU; on the
+card only the order of the product's sums differs. K6 computes the centered
+variance only, so under TTL_LN_STATS=ex2 the layers stay unfolded.
 
 `encode_image` dispatches a ResNet tower (`models/resnet.py`) to
 `resnet_features`, and `init_clip_params` draws one where the config asks
@@ -196,10 +207,12 @@ def _split_qkv(qkv: torch.Tensor):
     return [t.contiguous() for t in qkv.chunk(3, dim=-1)]
 
 
-def _ln_linear(x: torch.Tensor, ln: Params, lin: Params,
-               eps: float) -> torch.Tensor:
-    """linear(layer_norm(x)) as one fused call (K6 on the card)."""
-    return ln_matmul(x, ln["scale"], ln["bias"], lin["w"], lin["b"], eps)
+def _ln_linear(x: torch.Tensor, ln: Params, lin: Params, eps: float,
+               epilogue: str, gelu: bool = False) -> torch.Tensor:
+    """linear(layer_norm(x)) as one fused call (K6 on the card), with K6's
+    `epilogue` ("f32" or "linear"); `gelu` adds QuickGELU to "linear"'s."""
+    return ln_matmul(x, ln["scale"], ln["bias"], lin["w"], lin["b"], eps,
+                     epilogue=epilogue, quick_gelu=gelu)
 
 
 def _model_split(p: Params, x: torch.Tensor,
@@ -241,23 +254,29 @@ def _lora_columns(lora: Params, mg: tp.ModelGroup) -> Params:
 
 def _encoder_layer_fused_ln(p: Params, x: torch.Tensor, *, heads: int,
                             eps: float, causal: bool,
-                            seq_len: Optional[int]) -> torch.Tensor:
+                            seq_len: Optional[int],
+                            epilogue: str = "f32") -> torch.Tensor:
     """encoder_layer for a frozen layer, each layernorm folded into the
-    linears that read it."""
+    linears that read it, with K6's `epilogue`: "f32" (CoCoOp's, the JAX
+    `ln_matmul`'s) or "linear" (`linear`'s roundings, QuickGELU in fc1's)."""
     if torch.is_grad_enabled() and x.requires_grad:
         raise ValueError("fused_ln is forward only: run the layer under "
                          "torch.no_grad() or on an input that needs no "
                          "gradient")
     mg, heads = _model_split(p, x, heads)
     if "qkv" in p["attn"]:
-        q, k, v = _split_qkv(_ln_linear(x, p["ln1"], p["attn"]["qkv"], eps))
+        q, k, v = _split_qkv(_ln_linear(x, p["ln1"], p["attn"]["qkv"], eps,
+                                        epilogue))
     else:
-        q, k, v = (_ln_linear(x, p["ln1"], p["attn"][name], eps)
+        q, k, v = (_ln_linear(x, p["ln1"], p["attn"][name], eps, epilogue)
                    for name in "qkv")
     x = x + _out_linear(attention(q, k, v, heads, causal, seq_len),
                         p["attn"]["o"], mg)
-    fc1 = _ln_linear(x, p["ln2"], p["mlp"]["fc1"], eps)
-    return x + _out_linear(quick_gelu(fc1), p["mlp"]["fc2"], mg)
+    if epilogue == "f32":
+        h = quick_gelu(_ln_linear(x, p["ln2"], p["mlp"]["fc1"], eps, "f32"))
+    else:
+        h = _ln_linear(x, p["ln2"], p["mlp"]["fc1"], eps, epilogue, gelu=True)
+    return x + _out_linear(h, p["mlp"]["fc2"], mg)
 
 
 def encoder_layer(p: Params, x: torch.Tensor, *, heads: int, eps: float,
@@ -317,15 +336,21 @@ def encoder_layer_q(pq: Params, x: torch.Tensor, *, heads: int, eps: float,
 def _run_layers(stacked: Params, x: torch.Tensor, lo: int, hi: int, *,
                 heads: int, eps: float, causal: bool, remat: bool = False,
                 seq_len: Optional[int] = None,
-                fused_ln: bool = False) -> torch.Tensor:
+                fold: Optional[str] = None) -> torch.Tensor:
     """Layers [lo, hi) without adapters. With `remat`, where a gradient
     flows, each layer is checkpointed: only its input is saved and its
     internals (the attention inputs and probabilities among them) are
-    recomputed in the backward. Exact either way."""
+    recomputed in the backward. Exact either way. `fold` names K6's
+    epilogue where each layernorm folds into the linears behind it ("f32"
+    or "linear"; None: unfolded)."""
     def layer(i, h):
+        if fold is not None:
+            return _encoder_layer_fused_ln(layer_at(stacked, i), h,
+                                           heads=heads, eps=eps,
+                                           causal=causal, seq_len=seq_len,
+                                           epilogue=fold)
         return encoder_layer(layer_at(stacked, i), h, heads=heads, eps=eps,
-                             causal=causal, seq_len=seq_len,
-                             fused_ln=fused_ln)
+                             causal=causal, seq_len=seq_len)
 
     remat = remat and torch.is_grad_enabled() and x.requires_grad
     for i in range(lo, hi):
@@ -351,14 +376,27 @@ def pad_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, Optional[int]]:
     return torch.cat([x, pad], dim=1), s
 
 
+def _frozen(stacked: Params, x: torch.Tensor) -> bool:
+    """Whether no gradient can reach layers of `stacked` run on x: grad mode
+    is off, or neither x nor any of the layers' weights needs one."""
+    if not torch.is_grad_enabled():
+        return True
+    leaves = []
+    tree_map(leaves.append, stacked)
+    return not x.requires_grad and not any(t.requires_grad for t in leaves)
+
+
 def vision_prefix(p: Params, images: torch.Tensor, cfg: VisionConfig, *,
                   upto: int, compute_dtype=torch.bfloat16,
                   fused_ln: bool = False) -> torch.Tensor:
     """Patchify + embed + frozen layers [0, upto) -> hidden [B, S_pad, D].
     With an int8 copy under p["prefix_q"], its first min(upto, n_q) layers
     run int8 and the fp layers finish the range (none when the whole tower
-    is quantised and its fp stack dropped). `fused_ln` applies to the fp
-    layers; the int8 layers keep their own linears."""
+    is quantised and its fp stack dropped). `fused_ln` folds the fp layers'
+    layernorms with K6's "f32" epilogue; without it they fold with its
+    "linear" epilogue wherever no gradient can reach them (`_frozen`) and
+    the layernorm is the centered one. The int8 layers keep their own
+    linears."""
     b = images.shape[0]
     g, pt = cfg.grid, cfg.patch
     x = images.to(compute_dtype)
@@ -376,9 +414,15 @@ def vision_prefix(p: Params, images: torch.Tensor, cfg: VisionConfig, *,
         for i in range(nq):
             x = encoder_layer_q(layer_at(qp, i), x, heads=cfg.heads,
                                 eps=cfg.ln_eps, seq_len=seq_len)
+    if fused_ln:
+        fold = "f32"
+    elif _frozen(p["layers"], x) and ln_stats_mode() == "centered":
+        fold = "linear"
+    else:
+        fold = None
     return _run_layers(p["layers"], x, nq, upto, heads=cfg.heads,
                        eps=cfg.ln_eps, causal=False, seq_len=seq_len,
-                       fused_ln=fused_ln)
+                       fold=fold)
 
 
 def vision_from_hidden(p: Params, hidden: torch.Tensor, cfg: VisionConfig, *,

@@ -150,7 +150,7 @@ def library() -> ctypes.CDLL:
     lib.ttl_quant_matmul.restype = i
     lib.ttl_quant_matmul_scratch_bytes.argtypes = [i, i, i]
     lib.ttl_quant_matmul_scratch_bytes.restype = ll
-    lib.ttl_ln_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]
+    lib.ttl_ln_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, p]
     lib.ttl_ln_matmul.restype = i
     lib.ttl_ln_matmul_max_k.argtypes = [i]
     lib.ttl_ln_matmul_max_k.restype = i

@@ -3,18 +3,29 @@
 Counterpart of `ttl_tpu/ops/ln_matmul.py`: out = layer_norm(x; scale, bias,
 eps) @ w + b for x [..., K] and w [K, N], with f32 row statistics (the
 centered variance), the affine in f32, the normalised row rounded once to
-x's dtype, the product accumulated in f32 and the bias added in f32 before
-the single cast back to x's dtype. That is one rounding fewer than
-`models.clip.layer_norm` followed by `models.clip.linear`, which rounds the
-product and then adds the bias in the activation dtype: at bf16 the two
-differ by up to one bf16 step of the output, at f32 by summation order.
+x's dtype and the product accumulated in f32. The caller names the
+epilogue:
+
+- "f32" (the JAX `ln_matmul`'s): the bias, in f32, added to the f32
+  accumulator before the single cast back to x's dtype. That is one
+  rounding fewer than `models.clip.layer_norm` followed by
+  `models.clip.linear`: at bf16 the two differ by up to one bf16 step of
+  the output, at f32 by summation order.
+- "linear": the product rounded to x's dtype, then the bias, in x's dtype,
+  added and rounded again, as `models.clip.linear` computes; with
+  `quick_gelu=True` then `models.clip.quick_gelu` at the points where its
+  ops round. This is the function of `layer_norm` -> `linear` (->
+  `quick_gelu`); only the order of the product's sums differs on the card.
 
 `ln_matmul` dispatches on the device of x. A CPU tensor takes
 `ln_matmul_plain`. A CUDA tensor launches K6, the hand-written kernel in
 `csrc/ln_matmul.cu`, which keeps the normalised x in shared memory; anything
 the kernel does not take raises. `ln_matmul.launches` grows by one at each
-kernel launch. There is no backward: the frozen vision tower of the CoCoOp
-step is its caller (`models.clip.encoder_layer(fused_ln=True)`).
+kernel launch, `ln_matmul.linear_launches` at each launch with the "linear"
+epilogue. There is no backward: its callers are the frozen vision tower of
+the CoCoOp step (`models.clip.encoder_layer(fused_ln=True)`, "f32") and the
+frozen prefix wherever no gradient reaches it
+(`models.clip.vision_prefix`, "linear").
 """
 from __future__ import annotations
 
@@ -23,30 +34,50 @@ import torch
 from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the C interface's epilogue codes, by (epilogue, quick_gelu)
+_EPILOGUES = {("f32", False): 0, ("linear", False): 1, ("linear", True): 2}
+
+
+def _epilogue_code(epilogue: str, quick_gelu: bool) -> int:
+    code = _EPILOGUES.get((epilogue, bool(quick_gelu)))
+    if code is None:
+        raise ValueError(f"K6 epilogue: 'f32' or 'linear' (quick_gelu only "
+                         f"with 'linear'), got {epilogue!r}, quick_gelu="
+                         f"{quick_gelu}")
+    return code
 
 
 def ln_matmul_plain(x: torch.Tensor, ln_scale: torch.Tensor,
                     ln_bias: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                    eps: float = 1e-5) -> torch.Tensor:
+                    eps: float = 1e-5, epilogue: str = "f32",
+                    quick_gelu: bool = False) -> torch.Tensor:
     """Plain PyTorch version of K6, step by step as the kernel (and the
     Pallas kernel it replaces) computes: products of values in x's dtype are
     exact in f32, so the f32 matmul of the upcast operands is the f32
-    accumulation."""
+    accumulation. The "linear" epilogue is written as `models.clip.linear`
+    and `quick_gelu` compute it, so that a CPU tensor gets their bits."""
+    _epilogue_code(epilogue, quick_gelu)
     x32 = x.float()
     mu = x32.mean(dim=-1, keepdim=True)
     var = (x32 - mu).square().mean(dim=-1, keepdim=True)
     h = ((x32 - mu) * torch.rsqrt(var + eps) * ln_scale.float()
          + ln_bias.float()).to(x.dtype)
-    acc = torch.matmul(h.float(), w.to(x.dtype).float())
-    return (acc + b.float()).to(x.dtype)
+    if epilogue == "f32":
+        acc = torch.matmul(h.float(), w.to(x.dtype).float())
+        return (acc + b.float()).to(x.dtype)
+    y = torch.matmul(h, w.to(x.dtype)) + b.to(x.dtype)
+    return y * torch.sigmoid(1.702 * y) if quick_gelu else y
 
 
 def ln_matmul_cuda(x: torch.Tensor, ln_scale: torch.Tensor,
                    ln_bias: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                   eps: float = 1e-5) -> torch.Tensor:
+                   eps: float = 1e-5, epilogue: str = "f32",
+                   quick_gelu: bool = False) -> torch.Tensor:
     """Launch K6 on the current stream: x [M, K] and w [K, N] bf16 or f32
-    (one dtype), ln_scale and ln_bias [K] and b [N] f32 -> [M, N] in x's
-    dtype. K and N are multiples of 16."""
+    (one dtype), ln_scale and ln_bias [K] f32, b [N] f32 under the "f32"
+    epilogue and in x's dtype under "linear" -> [M, N] in x's dtype. K and
+    N are multiples of 16."""
+    code = _epilogue_code(epilogue, quick_gelu)
     if x.dim() != 2 or w.dim() != 2:
         raise ValueError(f"K6: expected x [M, K] and w [K, N], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -58,7 +89,8 @@ def ln_matmul_cuda(x: torch.Tensor, ln_scale: torch.Tensor,
     for name, a, dtype in (("x", x, x.dtype), ("w", w, x.dtype),
                            ("ln_scale", ln_scale, torch.float32),
                            ("ln_bias", ln_bias, torch.float32),
-                           ("b", b, torch.float32)):
+                           ("b", b, torch.float32 if code == 0
+                            else x.dtype)):
         if a.device.type != "cuda" or a.device != x.device:
             raise ValueError(f"K6 takes CUDA tensors on one device; {name} "
                              f"is on {a.device}")
@@ -84,27 +116,35 @@ def ln_matmul_cuda(x: torch.Tensor, ln_scale: torch.Tensor,
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
     rc = lib.ttl_ln_matmul(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w.data_ptr(),
-        b.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype], m, k, n,
+        b.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype], code, m, k, n,
         float(eps), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, f"ln_matmul at M={m}, K={k}, N={n}, {x.dtype}")
+    _build.check(rc, f"ln_matmul at M={m}, K={k}, N={n}, {x.dtype}, "
+                     f"epilogue {epilogue}{' + quick_gelu' * quick_gelu}")
     ln_matmul.launches += 1
+    ln_matmul.linear_launches += code != 0
     return out
 
 
 def ln_matmul(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
-              w: torch.Tensor, b: torch.Tensor,
-              eps: float = 1e-5) -> torch.Tensor:
-    """out = layer_norm(x) @ w + b for x [..., K]: the plain version for a
-    CPU tensor, K6 for a CUDA tensor. w is taken in x's dtype and the three
-    vectors in f32, converted here when the parameters are stored
-    otherwise."""
+              w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5,
+              epilogue: str = "f32", quick_gelu: bool = False) -> torch.Tensor:
+    """out = layer_norm(x) @ w + b for x [..., K], with the epilogue the
+    caller names (see the module): the plain version for a CPU tensor, K6
+    for a CUDA tensor. w is taken in x's dtype and row-major, the
+    layernorm's vectors in f32 and b in the epilogue's dtype, converted here
+    when the parameters are stored otherwise (a checkpoint's transposed
+    weights are copied each call)."""
     if x.device.type == "cpu":
-        return ln_matmul_plain(x, ln_scale, ln_bias, w, b, eps)
+        return ln_matmul_plain(x, ln_scale, ln_bias, w, b, eps, epilogue,
+                               quick_gelu)
     if x.device.type != "cuda":
         raise ValueError(f"no fused layernorm + linear for device {x.device}")
+    b = b.float() if epilogue == "f32" else b.to(x.dtype)
     out = ln_matmul_cuda(x.reshape(-1, x.shape[-1]), ln_scale.float(),
-                         ln_bias.float(), w.to(x.dtype), b.float(), eps)
+                         ln_bias.float(), w.to(x.dtype).contiguous(), b, eps,
+                         epilogue, quick_gelu)
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
 ln_matmul.launches = 0
+ln_matmul.linear_launches = 0
