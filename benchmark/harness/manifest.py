@@ -1,15 +1,26 @@
-"""The manifest (`BENCHMARK.json`) and the files it names, found by name."""
+"""The manifest (`BENCHMARK.json`) and the files it names, found by name.
+
+A configuration names its architecture (`"architecture"`, CLIP where the
+key is absent); the architecture's reference is `reference/arch/<name>.py`
+and its operation counts are `work/<name>.py`, each found in the first of
+its directories that holds the file.
+"""
 from __future__ import annotations
 
 import dataclasses
 import importlib.util
 import json
+import re
 from pathlib import Path
 from typing import Callable, List, Optional
 
 BENCH = Path(__file__).resolve().parent.parent
 ROOT = BENCH.parent
 MANIFEST = ROOT / "BENCHMARK.json"
+DEFAULT_ARCHITECTURE = "clip"
+ARCHITECTURE_DIRS = [BENCH / "reference" / "arch"]
+WORK_DIRS = [BENCH / "work"]
+_NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}")
 
 
 def load_json(path: Path) -> dict:
@@ -69,3 +80,28 @@ def metric_reader(name: str) -> Callable[[dict], Optional[float]]:
     mod = _module(BENCH / "metrics" / f"{name}.py",
                   "benchmark_metric_" + name.replace(".", "_"))
     return mod.read
+
+
+def architecture_name(config: dict) -> str:
+    return config.get("architecture", DEFAULT_ARCHITECTURE)
+
+
+def _by_name(dirs: List[Path], name: str, kind: str):
+    for d in dirs if _NAME.fullmatch(name) else ():
+        path = d / f"{name}.py"
+        if path.is_file():
+            return _module(path, f"benchmark_{kind}_{name}".replace(".", "_"))
+    known = sorted({p.stem for d in dirs for p in d.glob("*.py")})
+    raise KeyError(f"no {kind} module for architecture {name!r} (known: "
+                   f"{', '.join(known)})")
+
+
+def architecture(config: dict):
+    """The reference module of the configuration's architecture."""
+    return _by_name(ARCHITECTURE_DIRS, architecture_name(config),
+                    "architecture")
+
+
+def work_counts(config: dict):
+    """The operation counts module of the configuration's architecture."""
+    return _by_name(WORK_DIRS, architecture_name(config), "work")

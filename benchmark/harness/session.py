@@ -12,9 +12,9 @@ import tempfile
 import numpy as np
 import torch
 
-from . import judge
+from . import counters, judge
 from .device import card_info, process_start_time, require_cards
-from .manifest import driver, load_cell, metric_reader
+from .manifest import architecture, driver, load_cell, metric_reader
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "ttl_tpu")
 
@@ -22,15 +22,6 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "ttl_tpu")
 def note(key: str, value) -> None:
     """An earlier line of standard output, for reading."""
     print(f"# {key}: {json.dumps(value, default=str)}", flush=True)
-
-
-def launch_counts() -> dict:
-    """The program's own launch counters (attention K1/K2, int8 K5)."""
-    from ttl_tpu_torch.ops import attention, quant
-
-    return {"K1": attention.attention_bshd.fwd_launches,
-            "K2": attention.attention_bshd.bwd_launches,
-            "K5": quant.linear_q.launches}
 
 
 def sample(res: dict, seed: int, n: int):
@@ -64,8 +55,8 @@ def check(cell, res: dict, seed: int, device,
     from benchmark.reference import run as reference
 
     items, answers = sample(res, seed, cell.check["sample"])
-    args = dict(device=device, canvas=res["canvas"],
-                block=cell.check["block"])
+    args = dict(arch=architecture(cell.config), device=device,
+                canvas=res["canvas"], block=cell.check["block"])
     listed = [(item, item[0], item[1]) for item in items]
     ref = reference.logits(cell.config, seed, res["classnames"], listed,
                            **args)
@@ -86,6 +77,9 @@ def per_layer(cell, res: dict) -> tuple[dict, dict, dict]:
 
     reading = read(res["trace_path"])
     note("trace", reading.summary())
+    if res.get("counters"):
+        note("traced_counters", {"steps": res.get("traced_steps"),
+                                 **res["counters"]})
     run = {"reading": reading, "config": cell.config,
            "traced_steps": res.get("traced_steps"),
            "traced_images": res.get("traced_images"),
@@ -117,7 +111,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, device,
         "control": control, "rate": rate})
     res["memory_peak_bytes"] = (torch.cuda.max_memory_allocated(device)
                                 if on_card else 0)
-    res["launches"] = launch_counts()
+    res["launches"] = counters.read()
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()

@@ -4,7 +4,10 @@ Each item is (key, JPEG path, draw index): the reference decodes the file
 itself (PIL, as the program's loader and server do), places it at the top
 left of a square zero canvas, renders its views from the run's seed and
 the item's draw index, and computes its adapted and zero-shot logits with
-weights it draws itself from the seed (`weights.py`).
+weights it draws itself from the seed. What belongs to the configuration's
+architecture (its towers, weight draw, image normalization and, where it
+has its own, prompt table) comes from the module `arch` the harness finds
+by the configuration's `architecture` key (`reference/arch/<name>.py`).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import numpy as np
 import torch
 from PIL import Image
 
-from . import model, views, weights
+from . import model, views
 from .tokenizer import prompt_table
 
 
@@ -30,22 +33,28 @@ def canvas_of(path: str, canvas: int) -> Tuple[np.ndarray, int, int]:
     return out, h, w
 
 
+def to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def logits(config: dict, seed: int, classnames: Sequence[str],
-           items: Sequence[tuple], *, device, canvas: int, block: int,
+           items: Sequence[tuple], *, arch, device, canvas: int, block: int,
            arithmetic: str = "exact") -> Dict[object, tuple]:
     """key -> (adapted logits [C], zero-shot logits [C]) as float32 host
-    tensors. `arithmetic` "fp8" rounds every product's operands to float8
-    (the control)."""
+    tensors, under the architecture module `arch`. `arithmetic` "fp8"
+    rounds every product's operands to float8 (the control)."""
     mm = getattr(model, arithmetic)
     model.f32_products()
-    params = weights.to_device(weights.draw_weights(config, seed), device)
-    tokens = torch.from_numpy(prompt_table(
+    params = to_device(arch.draw_weights(config, seed), device)
+    table = getattr(arch, "prompt_table", prompt_table)
+    tokens = torch.from_numpy(table(
         classnames, config["ttl"]["prompt_template"])).to(device)
     with torch.no_grad():
-        classes = model.text_classifier(params["text"], tokens,
-                                        config["text"], mm=mm)
-    adapters0 = weights.to_device(weights.draw_adapters(config, seed),
-                                  device)
+        classes = model.normalize(arch.text_classifier(
+            params["text"], tokens, config["text"], mm=mm))
+    adapters0 = to_device(arch.draw_adapters(config, seed), device)
     size = config["vision"]["image_size"]
     n_views = config["ttl"]["views"]
     out = {}
@@ -57,8 +66,10 @@ def logits(config: dict, seed: int, classnames: Sequence[str],
         ws = torch.tensor([p[2] for p in placed], device=device)
         draws = {k: t.to(device) for k, t in views.draw_many(
             seed, [d for _, _, d in chunk], n_views).items()}
-        v = views.render(canv, hs, ws, draws, size)
-        a, z = model.ttl_logits(params, config, v, classes, adapters0, mm)
+        v = views.render(canv, hs, ws, draws, size, arch.IMAGE_MEAN,
+                         arch.IMAGE_STD)
+        a, z = model.ttl_logits(arch, params, config, v, classes, adapters0,
+                                mm)
         for (key, _, _), ai, zi in zip(chunk, a.cpu(), z.cpu()):
             out[key] = (ai, zi)
     return out

@@ -6,7 +6,8 @@ torchvision-style random resized crops (scale 0.08-1, aspect 3/4-4/3, ten
 attempts, then the clamped center crop) with random horizontal flips. Each
 crop is resized to the model's input size with the Keys cubic kernel
 (a = -0.5), antialiased, one weight matrix per axis applied to the image's
-square zero-padded canvas, then clamped to [0, 1] and CLIP-normalized.
+square zero-padded canvas, then clamped to [0, 1] and normalized by the
+architecture's mean and standard deviation.
 
 The draws of dataset index `idx` under `seed` come from one host
 `torch.Generator` seeded from numpy's SeedSequence([seed, idx]), in the
@@ -19,8 +20,6 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
-CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 SCALE = (0.08, 1.0)
 RATIO = (3.0 / 4.0, 4.0 / 3.0)
 ATTEMPTS = 10
@@ -108,18 +107,18 @@ def _weights(start, length, n_in, n_out):
     return torch.where(inside[..., None, :], wts, torch.zeros_like(wts))
 
 
-def _normalize(x):
-    mean = torch.tensor(CLIP_MEAN, device=x.device)[:, None, None]
-    std = torch.tensor(CLIP_STD, device=x.device)[:, None, None]
+def _normalize(x, mean, std):
+    mean = torch.tensor(mean, device=x.device)[:, None, None]
+    std = torch.tensor(std, device=x.device)[:, None, None]
     return (x - mean) / std
 
 
 def render(canvases: torch.Tensor, hs: torch.Tensor, ws: torch.Tensor,
-           draws, size: int) -> torch.Tensor:
+           draws, size: int, mean, std) -> torch.Tensor:
     """uint8 canvases [N, C, C, 3] holding images of hs x ws pixels at
     their top left, and their draws [N, n-1, ...] -> float32 views
-    [N, n, 3, size, size]; with draws None, the center view alone
-    [N, 1, 3, size, size]."""
+    [N, n, 3, size, size], normalized by the per-channel `mean` and `std`;
+    with draws None, the center view alone [N, 1, 3, size, size]."""
     n, c = canvases.shape[:2]
     h, w = hs.float(), ws.float()
     boxes = _center_box(h, w)[:, None]
@@ -138,4 +137,4 @@ def render(canvases: torch.Tensor, hs: torch.Tensor, ws: torch.Tensor,
                           draws["flip"]], dim=1)
         views = torch.where(flip[:, :, None, None, None], views.flip(-1),
                             views)
-    return _normalize(torch.clamp(views / 255.0, 0.0, 1.0))
+    return _normalize(torch.clamp(views / 255.0, 0.0, 1.0), mean, std)

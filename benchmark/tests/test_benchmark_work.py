@@ -47,3 +47,26 @@ def test_attention_calls_of_a_step():
     fwd, bwd = work.attention_calls(L14, 8)
     assert len(fwd) == 30 and len(bwd) == 3 and fwd[0].tokens == 257
     assert sum(c.batch == 8 for c in fwd) == 6
+
+
+# Today's counts, pinned exactly: moving them into `work/clip.py` changed
+# no number behind mfu.offline, k1_roofline or k2_roofline.
+PINNED = {
+    "clip-vit-b16": (2862920013004.8, (512, 197, 12, 64)),
+    "clip-vit-l14": (11794248909127.68, (512, 257, 16, 64)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_counts_are_pinned(name):
+    config = load_json(BENCH / "configs" / f"{name}.json")
+    flops, (batch, tokens, heads, head_dim) = PINNED[name]
+    assert "architecture" not in config           # CLIP by default
+    assert work.image_flops(config) == flops
+    layers = config["vision"]["num_hidden_layers"]
+    fwd, bwd = work.attention_calls(config, 8)
+    views = work.AttentionCall(batch, tokens, heads, head_dim)
+    clean = views._replace(batch=8)
+    assert fwd == [views] * layers + [clean] * 6
+    assert bwd == [views] * 3
+    assert all(isinstance(c, work.AttentionCall) for c in fwd + bwd)

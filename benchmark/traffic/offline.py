@@ -16,6 +16,8 @@ the time between the two.
 With a trace, the sink opens the traced span at the first batch written
 `trace.after_s` into the window and closes it at the first batch written
 `trace.span_s` later; the steps launched in between are the traced steps.
+The program's counters (`harness/counters.py`) are read as the span opens
+and as it closes: `counters` is how much each grew over the traced steps.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import time
 
 import torch
 
+from benchmark.harness import counters
 from benchmark.harness import images as jpegs
 from benchmark.harness.program import classnames, program_config
 
@@ -60,6 +63,7 @@ class Sink:
         self.batch_times = []     # time each batch's last line was written
         self.t0 = self.t_end = None
         self.trace_batches = None     # (first, last) batch of the span
+        self.trace_counters = []      # the program's counters at each end
         self._trace_open_at = None
 
     def write(self, text: str) -> int:
@@ -87,9 +91,11 @@ class Sink:
                     now - self.t0 >= self.trace_after_s:
                 self.tracer.start()
                 self._trace_open_at = (k, time.perf_counter())
+                self.trace_counters.append(counters.read())
             elif self.trace_batches is None and self._trace_open_at \
                     and now - self._trace_open_at[1] >= self.trace_span_s \
                     and k - self._trace_open_at[0] >= 2:
+                self.trace_counters.append(counters.read())
                 self.tracer.stop()
                 self.trace_batches = (self._trace_open_at[0], k)
         if now - self.t0 >= self.seconds and (
@@ -147,6 +153,8 @@ def run(ctx: dict) -> dict:
                  "window_s": t_end - t0,
                  "images_in_window": len(window),
                  "batches_in_window": len(window) // cfg.sample_batch,
+                 "batch_s": [t - t0 for t in sink.batch_times
+                             if t0 <= t <= t_end],
                  "distinct_files": n_files},
     }
     if tracer is not None:
@@ -154,4 +162,5 @@ def run(ctx: dict) -> dict:
         out["trace_path"] = tracer.out_path
         out["traced_steps"] = last - first
         out["traced_images"] = (last - first) * cfg.sample_batch
+        out["counters"] = counters.grown(*sink.trace_counters)
     return out
