@@ -194,7 +194,16 @@ per source, side by side), then:
    (PIL's host rate, and the native decoder's where it loads);
 39. `bench_torch.py` as two processes on cuda:0 over gloo (RANK 0 and 1,
    WORLD_SIZE 2, LOCAL_RANK 0, TTL_BENCH_S=2): the aggregate stage, rank 0
-   alone printing, with the aggregate's launches.
+   alone printing, with the aggregate's launches;
+40. the SwiGLU kernels of the EVA02 tower (`ops/swiglu.py`,
+   `csrc/swiglu.cu`), forward and backward, against their plain versions on
+   the card at SWIGLU_SHAPES (the EVA02-L/14@336 step's [512 x 592, 2 x
+   2730] and [8 x 592, 2 x 2730] bf16, an odd width, f32), within
+   SWIGLU_BOUND of each output with under SWIGLU_SHARE of the bf16 ones
+   differing,
+   the same bits from a second call, a launch counted each; ptxas on its
+   kernels (no spills); at the step's shape the median times beside the
+   plain versions' and the bound (bytes over 3.35 TB/s).
 
 K6 with `linear`'s epilogue ("K6 linear" in the launch counts, which "K6"
 counts too) runs q, k, v and fc1 of every full-precision vision layer that
@@ -375,6 +384,22 @@ K6_BOUND = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
 # rounding boundary (2e-4 of them at the prefix's shapes on an H100);
 # the f32 epilogue's single rounding moves about a quarter
 K6_LINEAR_SHARE = 0.01
+# SwiGLU: (rows, F, dtype). The EVA02-L/14@336 step's prefix (512 views of
+# 592 padded tokens) and clean passes (8 of 592), an odd F (the scalar
+# kernel), f32.
+SWIGLU_STEP = (512 * 592, 2730, torch.bfloat16)
+SWIGLU_SHAPES = [SWIGLU_STEP, (8 * 592, 2730, torch.bfloat16),
+                 (1001, 85, torch.bfloat16), (4096, 2730, torch.float32)]
+# SwiGLU vs plain: both compute each output in f32 and round it once; the
+# kernel's fast exponential and reciprocal move the f32 value by a few units
+# in its last place, so a bf16 output may round the other way: one bf16 step
+# of the output (2^-7 of its magnitude at most) plus, for the backward's du,
+# whose (1 + u (1 - sig)) cancels near u = -1.28, 2^-16 of the largest
+# output; f32, 1e-5 of the output's magnitude plus 1e-6 of the largest
+SWIGLU_BOUND = {torch.bfloat16: (2.0 ** -7, 2.0 ** -16),
+                torch.float32: (1e-5, 1e-6)}
+# the share of bf16 outputs the rounding may move (f32 outputs all may move)
+SWIGLU_SHARE = {torch.bfloat16: 0.01, torch.float32: 1.0}
 # The CoCoOp sample of the card-against-CPU run. With random weights the
 # features barely depend on the image and the two best of the 200 classes
 # lie close: of the images made from seeds 1 to 12, this one keeps them
@@ -762,6 +787,69 @@ def phase_k5(tq) -> dict:
             results[(t, k, n, dtype)]["int_mm_ms"] = int_mm_ms
             del codes, wt
         del x, got, want
+    return results
+
+
+def phase_swiglu(tsw) -> dict:
+    """The SwiGLU kernels against their plain versions at SWIGLU_SHAPES
+    (see the module's phase 40); times at SWIGLU_STEP."""
+    from ttl_tpu_torch.ops import _build
+    log("ptxas on the SwiGLU kernels (swiglu.cu):")
+    for key, used in sorted(_build.kernel_resources("swiglu").items()):
+        log(f"  {key.split(': ', 1)[1]}: {used}")
+        if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                         used):
+            raise AssertionError(f"SwiGLU's {key} spills: {used}")
+    g = torch.Generator().manual_seed(SEED + 40)
+    results = {}
+    for rows, f, dtype in SWIGLU_SHAPES:
+        shape = f"[{rows}, 2 x {f}] {dtype}"
+        gu = (torch.randn(rows, 2 * f, generator=g) * 3).to("cuda", dtype)
+        dy = torch.randn(rows, f, generator=g).to("cuda", dtype)
+        before = tsw.swiglu.launches
+        out = tsw.swiglu(gu)
+        grad = tsw.swiglu_grad_cuda(gu, dy)
+        torch.cuda.synchronize()
+        if tsw.swiglu.launches != before + 1:
+            raise AssertionError(f"SwiGLU at {shape}: no launch was counted")
+        errs = {}
+        for which, got, want in (
+                ("fwd", out, tsw.swiglu_plain(gu)),
+                ("bwd", grad, tsw.swiglu_grad_plain(gu, dy))):
+            rel, floor = SWIGLU_BOUND[dtype]
+            got, want = got.float(), want.float()
+            err = (got - want).abs()
+            limit = rel * want.abs() + floor * want.abs().max()
+            share = (err > 0).float().mean().item()
+            if not torch.isfinite(got).all() or (err > limit).any() \
+                    or share > SWIGLU_SHARE[dtype]:
+                raise AssertionError(
+                    f"SwiGLU {which} at {shape} disagrees with its plain "
+                    f"version: {err.max().item():.3e} at most, "
+                    f"{(err > limit).sum().item()} outputs past the bound, "
+                    f"{share:.2e} of them differing")
+            errs[which] = (err.max().item(), share)
+        if not (torch.equal(out, tsw.swiglu_cuda(gu))
+                and torch.equal(grad, tsw.swiglu_grad_cuda(gu, dy))):
+            raise AssertionError(f"SwiGLU at {shape}: two calls on the same "
+                                 "inputs gave different bits")
+        r = {"max_abs_err": max(e for e, _ in errs.values()),
+             "fwd_differing": errs["fwd"][1], "bwd_differing": errs["bwd"][1]}
+        if (rows, f, dtype) == SWIGLU_STEP:
+            item = gu.element_size()
+            r.update(
+                ms=median_ms(lambda: tsw.swiglu_cuda(gu)),
+                bwd_ms=median_ms(lambda: tsw.swiglu_grad_cuda(gu, dy)),
+                plain_ms=median_ms(lambda: tsw.swiglu_plain(gu), reps=5),
+                bwd_plain_ms=median_ms(
+                    lambda: tsw.swiglu_grad_plain(gu, dy), reps=5),
+                bound_ms=rows * 3 * f * item / 3.35e9,
+                bwd_bound_ms=rows * 5 * f * item / 3.35e9, bound_by="bytes")
+        log(f"SwiGLU {shape}: " + ", ".join(
+            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in r.items()))
+        results[(rows, f, dtype)] = r
+        del gu, dy, out, grad
     return results
 
 
@@ -2978,6 +3066,7 @@ def main() -> int:
     from ttl_tpu_torch.ops import attention as fa
     from ttl_tpu_torch.ops import ln_matmul as tlm
     from ttl_tpu_torch.ops import quant as tq
+    from ttl_tpu_torch.ops import swiglu as tsw
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3075,7 +3164,8 @@ def main() -> int:
         seconds[phase] = (run(), time.perf_counter() - start)
         log(f"phase {phase} took {seconds[phase][1]:.1f} s")
     for phase, run in ((37, phase_bench), (38, phase_bench_tools),
-                       (39, lambda: phase_bench_ranks(lib.parent))):
+                       (39, lambda: phase_bench_ranks(lib.parent)),
+                       (40, lambda: phase_swiglu(tsw))):
         start = time.perf_counter()
         seconds[phase] = (run(), time.perf_counter() - start)
         log(f"phase {phase} took {seconds[phase][1]:.1f} s")
@@ -3132,6 +3222,7 @@ def main() -> int:
     bhsd_src = "ttl_tpu_torch/csrc/attention_bhsd.cu"
     fc1 = k5[K5_FC1]
     k6_fc1 = k6[K6_FC1]
+    swiglu = seconds[40][0]
 
     def other_shapes(kind):
         """K1's or K2's results at OTHER_FWD / OTHER_BWD, by shape."""
@@ -3194,6 +3285,12 @@ def main() -> int:
          "linear_launches_by_path": by_path("K6 linear"),
          "shapes": {f"[{m}, {k}] x [{k}, {n}] {d}": r
                     for (m, k, n, d), r in k6.items()}},
+        {"name": "swiglu", "route": "cuda",
+         "source": "ttl_tpu_torch/csrc/swiglu.cu",
+         "replaces": "none (EVA02's gated MLP)", **swiglu[SWIGLU_STEP],
+         "max_abs_err": max(r["max_abs_err"] for r in swiglu.values()),
+         "shapes": {f"[{m}, 2 x {f}] {d}": r
+                    for (m, f, d), r in swiglu.items()}},
     ]
     print(json.dumps({"kernels": kernels}, default=str))
     print(smi)

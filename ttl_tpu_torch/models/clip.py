@@ -67,7 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, ClassVar, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -110,6 +110,15 @@ class VisionConfig(TowerConfig):
 class TextConfig(TowerConfig):
     vocab: int = 49408
     ctx: int = 77
+    # the MLP's activation, a key of ACTIVATIONS: a class constant, so that
+    # the fields stay the JAX package's TextConfig's
+    act: ClassVar[str] = "quick_gelu"
+
+
+@dataclasses.dataclass(frozen=True)
+class GELUTextConfig(TextConfig):
+    """OpenCLIP's text tower with the exact GELU (EVA02-CLIP's)."""
+    act: ClassVar[str] = "gelu"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +161,15 @@ def layer_norm(x: torch.Tensor, p: Params, eps: float) -> torch.Tensor:
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact (erf) GELU: OpenCLIP's text tower where `quick_gelu` is
+    not set (EVA02-CLIP's)."""
+    return torch.nn.functional.gelu(x)
+
+
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": gelu}
 
 
 def linear(x: torch.Tensor, p: Params) -> torch.Tensor:
@@ -282,12 +300,14 @@ def _encoder_layer_fused_ln(p: Params, x: torch.Tensor, *, heads: int,
 def encoder_layer(p: Params, x: torch.Tensor, *, heads: int, eps: float,
                   causal: bool, lora: Optional[Params] = None,
                   lora_scale: float = 2.0, seq_len: Optional[int] = None,
-                  fused_ln: bool = False) -> torch.Tensor:
-    """Pre-LN transformer block with a QuickGELU MLP. `lora` adds rank-r
+                  fused_ln: bool = False,
+                  act: str = "quick_gelu") -> torch.Tensor:
+    """Pre-LN transformer block with an MLP whose activation `act` names
+    (QuickGELU by default). `lora` adds rank-r
     updates to the q and v projections. A layer with a fused `qkv`
     projection (`fuse_qkv_params`) takes q, k and v from one product.
     `fused_ln` takes q, k, v and fc1 from `ln_matmul` (frozen layers only:
-    no LoRA, no gradient)."""
+    no LoRA, no gradient, QuickGELU)."""
     if fused_ln:
         if lora is not None:
             raise ValueError("fused_ln does not take LoRA adapters: the "
@@ -314,7 +334,7 @@ def encoder_layer(p: Params, x: torch.Tensor, *, heads: int, eps: float,
     h = layer_norm(x, p["ln2"], eps)
     if mg is not None:
         h = tp.copy_to_model(h, mg)
-    return x + _out_linear(quick_gelu(linear(h, p["mlp"]["fc1"])),
+    return x + _out_linear(ACTIVATIONS[act](linear(h, p["mlp"]["fc1"])),
                            p["mlp"]["fc2"], mg)
 
 
@@ -336,13 +356,15 @@ def encoder_layer_q(pq: Params, x: torch.Tensor, *, heads: int, eps: float,
 def _run_layers(stacked: Params, x: torch.Tensor, lo: int, hi: int, *,
                 heads: int, eps: float, causal: bool, remat: bool = False,
                 seq_len: Optional[int] = None,
-                fold: Optional[str] = None) -> torch.Tensor:
+                fold: Optional[str] = None,
+                act: str = "quick_gelu") -> torch.Tensor:
     """Layers [lo, hi) without adapters. With `remat`, where a gradient
     flows, each layer is checkpointed: only its input is saved and its
     internals (the attention inputs and probabilities among them) are
     recomputed in the backward. Exact either way. `fold` names K6's
     epilogue where each layernorm folds into the linears behind it ("f32"
-    or "linear"; None: unfolded)."""
+    or "linear"; None: unfolded; QuickGELU layers only). `act` is the
+    unfolded layers' MLP activation."""
     def layer(i, h):
         if fold is not None:
             return _encoder_layer_fused_ln(layer_at(stacked, i), h,
@@ -350,7 +372,7 @@ def _run_layers(stacked: Params, x: torch.Tensor, lo: int, hi: int, *,
                                            causal=causal, seq_len=seq_len,
                                            epilogue=fold)
         return encoder_layer(layer_at(stacked, i), h, heads=heads, eps=eps,
-                             causal=causal, seq_len=seq_len)
+                             causal=causal, seq_len=seq_len, act=act)
 
     remat = remat and torch.is_grad_enabled() and x.requires_grad
     for i in range(lo, hi):
@@ -477,13 +499,17 @@ def encode_image(p: Params, images: torch.Tensor, vision_cfg, *,
                  compute_dtype=torch.bfloat16, fused_ln: bool = False,
                  **lora_kw) -> torch.Tensor:
     """Backbone dispatcher: the ViT tower (VisionConfig) or the ModifiedResNet
-    (ResNetVisionConfig). The LoRA kwargs of `vision_features` apply to the
+    (ResNetVisionConfig), the EVA02 tower (`models/eva02.py`) among the
+    ViTs. The LoRA kwargs of `vision_features` apply to the
     ViT only, as in the reference; a ResNet given adapters raises. A ResNet
     has no layernorm to fold, so it ignores `fused_ln`."""
     if isinstance(vision_cfg, VisionConfig):
-        return vision_features(p, images, vision_cfg,
-                               compute_dtype=compute_dtype, fused_ln=fused_ln,
-                               **lora_kw)
+        from . import eva02
+        features = (eva02.vision_features
+                    if isinstance(vision_cfg, eva02.EVA02VisionConfig)
+                    else vision_features)
+        return features(p, images, vision_cfg, compute_dtype=compute_dtype,
+                        fused_ln=fused_ln, **lora_kw)
     if lora_kw.get("adapters") is not None:
         raise ValueError("LoRA adapters require a ViT backbone "
                          "(the reference's TTL path is ViT-only)")
@@ -516,7 +542,7 @@ def text_features(p: Params, tokens: torch.Tensor, cfg: TextConfig, *,
     as [S*C, proj_dim], sample-major."""
     x = p["token_embed"][tokens].to(compute_dtype)
     x = x + p["pos_embed"][: x.shape[1]].to(compute_dtype)
-    run = dict(heads=cfg.heads, eps=cfg.ln_eps, causal=True)
+    run = dict(heads=cfg.heads, eps=cfg.ln_eps, causal=True, act=cfg.act)
     if adapters is None:
         x = _run_layers(p["layers"], x, 0, cfg.layers, **run)
         return _pool_eot(x, tokens, p, cfg)
@@ -547,7 +573,7 @@ def text_features_from_embeddings(p: Params, embeddings: torch.Tensor,
     x = embeddings.to(compute_dtype) \
         + p["pos_embed"][: embeddings.shape[1]].to(compute_dtype)
     x = _run_layers(p["layers"], x, 0, cfg.layers, heads=cfg.heads,
-                    eps=cfg.ln_eps, causal=True, remat=remat)
+                    eps=cfg.ln_eps, causal=True, remat=remat, act=cfg.act)
     return _pool_eot(x, tokens, p, cfg)
 
 
@@ -602,11 +628,15 @@ def init_clip_params(cfg: CLIPConfig, gen: torch.Generator, *,
     from `gen` on the host: for runs that have no checkpoint. Layernorm
     parameters and logit_scale stay f32, every other leaf is param_dtype;
     a ResNet tower keeps its batchnorms and attention pool in f32
-    (`init_resnet_params`)."""
+    (`init_resnet_params`); an EVA02 tower is drawn by
+    `models.eva02.init_vision`."""
+    from .eva02 import EVA02VisionConfig, init_vision
     v, t = cfg.vision, cfg.text
     if isinstance(v, ResNetVisionConfig):
         vision = init_resnet_params(v, gen, device=device,
                                     param_dtype=param_dtype)
+    elif isinstance(v, EVA02VisionConfig):
+        vision = _placed(init_vision(gen, v), device, param_dtype)
     else:
         vision = _placed(_init_vit_vision(gen, v), device, param_dtype)
     text = {

@@ -3,11 +3,15 @@
 The ResNet rows (RN50 ... RN50x64, `models/resnet.py`) serve the prompt,
 text-LoRA, CoCoOp and zero-shot modes; image-LoRA adapts ViT towers only, as
 in the reference. The x4/x16/x64 scalings follow the published CLIP model
-zoo.
+zoo. EVA02-CLIP-L-14-336 (`models/eva02.py`) is EVA-CLIP's
+`EVA02-CLIP-L-14-336.json`: its vision tower at 336 px (577 tokens, a
+2730-wide SwiGLU MLP, RoPE interpolated from a 16- to a 24-patch grid) and
+OpenCLIP's text tower with the exact GELU.
 """
 from __future__ import annotations
 
-from .clip import CLIPConfig, TextConfig, VisionConfig
+from .clip import CLIPConfig, GELUTextConfig, TextConfig, VisionConfig
+from .eva02 import EVA02VisionConfig
 from .resnet import RESNET_ARCHS
 
 ARCHS = {
@@ -53,6 +57,14 @@ ARCHS = {
     ),
 }
 
+ARCHS["EVA02-CLIP-L-14-336"] = CLIPConfig(
+    vision=EVA02VisionConfig(hidden=1024, layers=24, heads=16, proj_dim=768,
+                             patch=14, image_size=336,
+                             mlp_hidden=int(1024 * 2.6667),
+                             rope_pretrain_grid=16),
+    text=GELUTextConfig(hidden=768, layers=12, heads=12, proj_dim=768),
+)
+
 # tiny config for tests and CPU runs (also an arch name: --arch test-tiny)
 TEST_TINY = CLIPConfig(
     vision=VisionConfig(hidden=32, layers=4, heads=2, proj_dim=16,
@@ -62,6 +74,18 @@ TEST_TINY = CLIPConfig(
 )
 
 ARCHS["test-tiny"] = TEST_TINY
+
+# the EVA02 tower at tiny size (--arch eva02-tiny): a 4 x 4 grid whose RoPE
+# positions are interpolated from a 2 x 2 one, an odd SwiGLU width
+EVA02_TINY = CLIPConfig(
+    vision=EVA02VisionConfig(hidden=32, layers=4, heads=2, proj_dim=16,
+                             patch=16, image_size=64,
+                             mlp_hidden=int(32 * 2.6667),
+                             rope_pretrain_grid=2),
+    text=GELUTextConfig(hidden=32, layers=4, heads=2, proj_dim=16),
+)
+
+ARCHS["eva02-tiny"] = EVA02_TINY
 
 
 def get_arch(name: str) -> CLIPConfig:

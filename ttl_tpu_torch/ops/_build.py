@@ -154,6 +154,10 @@ def library() -> ctypes.CDLL:
     lib.ttl_ln_matmul.restype = i
     lib.ttl_ln_matmul_max_k.argtypes = [i]
     lib.ttl_ln_matmul_max_k.restype = i
+    lib.ttl_swiglu_fwd.argtypes = [p, p, i, ll, i, p]
+    lib.ttl_swiglu_fwd.restype = i
+    lib.ttl_swiglu_bwd.argtypes = [p, p, p, i, ll, i, p]
+    lib.ttl_swiglu_bwd.restype = i
     lib.ttl_cuda_error_string.argtypes = [i]
     lib.ttl_cuda_error_string.restype = ctypes.c_char_p
     return lib

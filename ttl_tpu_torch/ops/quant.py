@@ -198,9 +198,14 @@ def attach_prefix_quant(params: Params, upto: int, *,
 
 def quant_prefix_len(cfg, clip_cfg) -> int:
     """How many vision layers a config may quantise: those below the LoRA
-    window when the image encoder is adapted, else the whole tower."""
+    window when the image encoder is adapted, else the whole tower. The
+    EVA02 tower has no int8 layer: it raises."""
     from ..config import resolve_layer_range
     from ..models.clip import VisionConfig
+    from ..models.eva02 import EVA02VisionConfig
+    if isinstance(clip_cfg.vision, EVA02VisionConfig):
+        raise ValueError("the int8 prefix (--prefix_quant int8) is not "
+                         "supported on the EVA02 vision tower")
     if not isinstance(clip_cfg.vision, VisionConfig):
         return 0
     image_adapted = (cfg.lora_encoder == "image" and cfg.tta_steps > 0
