@@ -203,7 +203,21 @@ per source, side by side), then:
    differing,
    the same bits from a second call, a launch counted each; ptxas on its
    kernels (no spills); at the step's shape the median times beside the
-   plain versions' and the bound (bytes over 3.35 TB/s).
+   plain versions' and the bound (bytes over 3.35 TB/s);
+41. the layernorm kernels (`ops/layer_norm.py`, `csrc/layer_norm.cu`),
+   forward and dx backward, at LN_SHAPES (EVA02-L/14@336's step at 2730 and
+   1024, ViT-B/16's window at 768, all bf16; a ragged row count at 512; f32
+   at 2730): the forward against the plain version within LN_BOUND with
+   under LN_SHARE of the bf16 outputs differing, dx against autograd through
+   the plain version within LN_BWD_BOUND, the same bits from a second call,
+   a launch counted each way; ptxas on its kernels (no spills); at the step
+   shapes the median times beside the plain versions', `F.layer_norm`'s (a
+   library call on no path) and the bound (bytes over 3.35 TB/s); the
+   forward and dx under TTL_LN_STATS=ex2 against the plain version's ex2 at
+   LN_EX2_SHAPE. Every path that `phase_path` runs checks its layernorm
+   launches over its 16-image run (`layer_norm` in its result): the class
+   table's text tower once, where the path encodes one, and a count a
+   batch.
 
 K6 with `linear`'s epilogue ("K6 linear" in the launch counts, which "K6"
 counts too) runs q, k, v and fc1 of every full-precision vision layer that
@@ -400,6 +414,39 @@ SWIGLU_BOUND = {torch.bfloat16: (2.0 ** -7, 2.0 ** -16),
                 torch.float32: (1e-5, 1e-6)}
 # the share of bf16 outputs the rounding may move (f32 outputs all may move)
 SWIGLU_SHARE = {torch.bfloat16: 0.01, torch.float32: 1.0}
+# The layernorm kernels: (rows, K, dtype). EVA02-L/14@336's step (512 views
+# of 592 padded tokens) at LN_ffn's width and at the tower's, ViT-B/16's
+# window (512 views of 208), then a row count that fills no block of four
+# warp rows, and f32 at the block route's width.
+LN_STEP_SHAPES = [(512 * 592, 2730, torch.bfloat16),
+                  (512 * 592, 1024, torch.bfloat16),
+                  (512 * SEQ_PAD, 768, torch.bfloat16)]
+LN_SHAPES = LN_STEP_SHAPES + [(1001, 512, torch.bfloat16),
+                              (4099, 2730, torch.float32)]
+# Layernorm vs plain: both round the same f32 value once, but the statistics
+# sum in another order, so a bf16 output may round one step (2^-7 of it) the
+# other way, plus 2^-16 of the largest where the affine's add cancels; f32,
+# the order of the sums, 1e-5 of the largest. dx likewise, with 2^-12 of the
+# largest where g - mean(g) - xh mean(g xh) cancels.
+LN_BOUND = {torch.bfloat16: (2.0 ** -7, 2.0 ** -16),
+            torch.float32: (0.0, 1e-5)}
+LN_BWD_BOUND = {torch.bfloat16: (2.0 ** -7, 2.0 ** -12),
+                torch.float32: (0.0, 1e-5)}
+# the share of bf16 forward outputs the order of the sums may move
+LN_SHARE = {torch.bfloat16: 0.01, torch.float32: 1.0}
+# layernorm launches of a path's run, (once, a batch of 8): LN_TEXT the
+# class table's text tower once (12 layers x 2 and ln_final, at ViT-B/16's
+# and RN50's towers); LN_MAIN a main-path batch at ViT-B/16, window 9-11:
+# ln_pre (the prefix folds into K6), the window's 6 and ln_post forward,
+# their backward but layer 9's ln1, the clean-view pass's 7. A zero-shot
+# pass over the tower K6 folds adds ln_pre and ln_post, one over the int8
+# prefix 24 more (ln1 and ln2 of 12 layers); an unfolded 9-layer prefix 18.
+# Prompt tuning, text-LoRA and CoCoOp encode the class text in each batch,
+# and nothing once.
+LN_TEXT = 25
+LN_MAIN = 21
+# the shape the ex2 statistics are checked at
+LN_EX2_SHAPE = (2 * 592 + 1, 2730, torch.bfloat16)
 # The CoCoOp sample of the card-against-CPU run. With random weights the
 # features barely depend on the image and the two best of the 200 classes
 # lie close: of the images made from seeds 1 to 12, this one keeps them
@@ -853,6 +900,123 @@ def phase_swiglu(tsw) -> dict:
     return results
 
 
+def ln_inputs(g, rows: int, k: int, dtype):
+    """x with an offset a row, scale and bias off 1 and 0 (f32), dy."""
+    x = (torch.randn(rows, k, device="cuda", generator=g) * 2
+         + torch.randn(rows, 1, device="cuda", generator=g)).to(dtype)
+    scale = 1 + 0.3 * torch.randn(k, device="cuda", generator=g)
+    bias = 0.3 * torch.randn(k, device="cuda", generator=g)
+    dy = torch.randn(rows, k, device="cuda", generator=g).to(dtype)
+    return x, scale, bias, dy
+
+
+def ln_against_plain(tln, x, scale, bias, dy, eps, stats: str):
+    """The layernorm kernels' forward and dx on x, a launch counted each,
+    against the plain version's and autograd through it within LN_BOUND,
+    LN_SHARE and LN_BWD_BOUND: (the errors and differing shares by way,
+    y, dx, the plain y and the input leaf)."""
+    rows, k = x.shape
+    shape = f"[{rows}, {k}] {x.dtype}, {stats}"
+    leaf = x.detach().requires_grad_(True)
+    before = tln.layer_norm.launches
+    out = tln.layer_norm(leaf, scale, bias, eps, stats)
+    (grad,) = torch.autograd.grad(out, leaf, dy)
+    torch.cuda.synchronize()
+    if tln.layer_norm.launches != before + 2:
+        raise AssertionError(f"layernorm at {shape}: a forward and a "
+                             "backward were not counted")
+    plain = tln.layer_norm_plain(leaf, scale, bias, eps, stats)
+    (plain_grad,) = torch.autograd.grad(plain, leaf, dy, retain_graph=True)
+    errs = {}
+    for which, got, want, (rel, floor), share_bound in (
+            ("fwd", out, plain, LN_BOUND[x.dtype], LN_SHARE[x.dtype]),
+            ("bwd", grad, plain_grad, LN_BWD_BOUND[x.dtype], 1.0)):
+        got, want = got.detach().float(), want.detach().float()
+        err = (got - want).abs()
+        limit = rel * want.abs() + floor * want.abs().max()
+        share = (err > 0).float().mean().item()
+        if not torch.isfinite(got).all() or (err > limit).any() \
+                or share > share_bound:
+            raise AssertionError(
+                f"layernorm {which} at {shape} disagrees with the plain "
+                f"version: {err.max().item():.3e} at most, "
+                f"{(err > limit).sum().item()} outputs past the bound, "
+                f"{share:.2e} of them differing")
+        errs[which] = (err.max().item(), share)
+    return errs, out, grad, plain, leaf
+
+
+def phase_layer_norm(tln) -> dict:
+    """The layernorm kernels against the plain version at LN_SHAPES and,
+    with the ex2 statistics, at LN_EX2_SHAPE (see the module's phase 41);
+    times at LN_STEP_SHAPES."""
+    import torch.nn.functional as F
+    from ttl_tpu_torch.ops import _build
+    log("ptxas on the layernorm kernels (layer_norm.cu):")
+    for key, used in sorted(_build.kernel_resources("layer_norm_").items()):
+        log(f"  {key.split(': ', 1)[1]}: {used}")
+        if not re.search(r"\b0 bytes spill stores, 0 bytes spill loads",
+                         used):
+            raise AssertionError(f"layernorm's {key} spills: {used}")
+    g = torch.Generator("cuda").manual_seed(SEED + 41)
+    eps = 1e-6
+    results = {}
+    for rows, k, dtype in LN_SHAPES:
+        shape = f"[{rows}, {k}] {dtype}"
+        x, scale, bias, dy = ln_inputs(g, rows, k, dtype)
+        errs, out, grad, plain, leaf = ln_against_plain(
+            tln, x, scale, bias, dy, eps, "centered")
+        y, mu, rstd = tln.layer_norm_cuda(x, scale, bias, eps,
+                                          with_stats=True)
+        if not (torch.equal(y, out) and torch.equal(
+                grad, tln.layer_norm_grad_cuda(x, dy, scale, mu, rstd))):
+            raise AssertionError(f"layernorm at {shape}: two calls on the "
+                                 "same inputs gave different bits")
+        r = {"max_abs_err": max(e for e, _ in errs.values()),
+             "fwd_max_abs_err": errs["fwd"][0],
+             "bwd_max_abs_err": errs["bwd"][0],
+             "fwd_differing": errs["fwd"][1],
+             "bwd_differing": errs["bwd"][1]}
+        if (rows, k, dtype) in LN_STEP_SHAPES:
+            item = x.element_size()
+            lib_scale, lib_bias = scale.to(dtype), bias.to(dtype)
+            lib_leaf = x.detach().requires_grad_(True)
+            lib_out = F.layer_norm(lib_leaf, (k,), lib_scale, lib_bias, eps)
+            r.update(
+                ms=median_ms(lambda: tln.layer_norm_cuda(x, scale, bias,
+                                                         eps)),
+                bwd_ms=median_ms(lambda: tln.layer_norm_grad_cuda(
+                    x, dy, scale, mu, rstd)),
+                plain_ms=median_ms(lambda: tln.layer_norm_plain(
+                    x, scale, bias, eps), reps=5),
+                bwd_plain_ms=median_ms(lambda: torch.autograd.grad(
+                    plain, leaf, dy, retain_graph=True), reps=5),
+                library_ms=median_ms(lambda: F.layer_norm(
+                    x, (k,), lib_scale, lib_bias, eps)),
+                bwd_library_ms=median_ms(lambda: torch.autograd.grad(
+                    lib_out, lib_leaf, dy, retain_graph=True)),
+                bound_ms=rows * 2 * k * item / 3.35e9,
+                bwd_bound_ms=rows * 3 * k * item / 3.35e9, bound_by="bytes")
+            del lib_leaf, lib_out
+        log(f"layernorm {shape}: " + ", ".join(
+            f"{k_} {v:.4g}" if isinstance(v, float) else f"{k_} {v}"
+            for k_, v in r.items()))
+        results[(rows, k, dtype)] = r
+        del x, dy, leaf, out, grad, plain, y, mu, rstd
+        torch.cuda.empty_cache()
+    errs = ln_against_plain(tln, *ln_inputs(g, *LN_EX2_SHAPE), eps,
+                            "ex2")[0]
+    rows, k, dtype = LN_EX2_SHAPE
+    log(f"layernorm [{rows}, {k}] {dtype}, ex2: " + ", ".join(
+        f"{which} max_abs_err {e:.4g}, differing {share:.4g}"
+        for which, (e, share) in errs.items()))
+    results[(rows, k, f"{dtype}, ex2")] = {
+        "max_abs_err": max(e for e, _ in errs.values()),
+        "fwd_max_abs_err": errs["fwd"][0], "bwd_max_abs_err": errs["bwd"][0],
+        "fwd_differing": errs["fwd"][1], "bwd_differing": errs["bwd"][1]}
+    return results
+
+
 def phase_k6(tlm) -> dict:
     """K6 against ln_matmul_plain on the card at K6_SHAPES, with the pair of
     library calls that computes the same function (F.layer_norm, F.linear;
@@ -1114,10 +1278,12 @@ def attention_route(fa, value):
 
 
 def reset_counts(fa, tq) -> None:
+    from ttl_tpu_torch.ops.layer_norm import layer_norm
     from ttl_tpu_torch.ops.ln_matmul import ln_matmul
     fa.reset_launch_counts()
     tq.linear_q.launches = 0
     ln_matmul.launches = ln_matmul.linear_launches = 0
+    layer_norm.launches = 0
 
 
 def step_factory(cfg) -> str:
@@ -1147,13 +1313,15 @@ def drive(cfg, probe, n_images: int):
     return res
 
 
-def phase_path(fa, tq, name: str, cfg, per_batch: dict,
+def phase_path(fa, tq, name: str, cfg, per_batch: dict, ln: tuple,
                timed: bool = True) -> dict:
     """Drive runner.run over 16 images and check the launches per batch
-    (kernels `per_batch` does not name must not launch); then, if `timed`,
+    (kernels `per_batch` does not name must not launch) and the layernorm
+    launches of the run, `ln` = (once, a batch); then, if `timed`,
     time 80 images in steady state, with the run's peak device memory, and
     profile one batch."""
     from ttl_tpu_torch import runner
+    from ttl_tpu_torch.ops.layer_norm import layer_norm
 
     original = getattr(runner, step_factory(cfg))
     per_batch = {**dict.fromkeys(launch_counts(fa, tq), 0), **per_batch}
@@ -1164,17 +1332,23 @@ def phase_path(fa, tq, name: str, cfg, per_batch: dict,
     res = drive(cfg, probe, 16)
     counts = launch_counts(fa, tq)
     n_batches = len(probe.starts)
-    log(f"{name}: {n_batches} batches, launches {counts}, top1/top5 "
-        f"{res['A']}, whole run {time.perf_counter() - start:.1f} s")
+    ln_run = layer_norm.launches
+    log(f"{name}: {n_batches} batches, launches {counts}, layer_norm "
+        f"{ln_run} over the run, top1/top5 {res['A']}, whole run "
+        f"{time.perf_counter() - start:.1f} s")
     expect = {k: v * n_batches for k, v in per_batch.items()}
     if n_batches != 2 or counts != expect:
         raise AssertionError(f"{name}: expected {per_batch} launches per "
                              f"batch, got {counts} over {n_batches} batches")
+    if ln_run != ln[0] + ln[1] * n_batches:
+        raise AssertionError(f"{name}: expected {ln[0]} layernorm launches "
+                             f"once and {ln[1]} a batch, got {ln_run} over "
+                             f"{n_batches} batches")
     top1, top5 = res["A"]
     if not (0.0 <= top1 <= 100.0 and 0.0 <= top5 <= 100.0):
         raise AssertionError(f"top-1/top-5 out of range: {res['A']}")
     if not timed:
-        return {"launches": counts}
+        return {"launches": counts, "layer_norm": ln_run}
 
     # throughput: a longer run through the runner's own pipeline. Once
     # pipeline_depth + 1 steps are queued, each dispatch waits for an older
@@ -1198,7 +1372,7 @@ def phase_path(fa, tq, name: str, cfg, per_batch: dict,
         f"top CUDA kernels:\n{profiled.table}")
     return {"launches": counts, "samples_per_s": rate,
             "busy_share": busy_s / np.median(pace), "peak_gb": peak_gb,
-            "busy_ms": profiled.busy_ms}
+            "busy_ms": profiled.busy_ms, "layer_norm": ln_run}
 
 
 class Sample(NamedTuple):
@@ -1514,12 +1688,16 @@ def phase_plpd(fa, tq) -> tuple:
     against CPU, and the launches with the int8 prefix. Returns both paths'
     results."""
     cfg = config(*PLPD_FLAGS)
+    # the counterfactual pass adds ln_pre, the window's 6 and ln_post; the
+    # int8 prefix 18 a pass
     path = phase_path(fa, tq, "PLPD", cfg,
-                      {"K1": 27, "K2": 3, "K6": 72, "K6 linear": 72})
+                      {"K1": 27, "K2": 3, "K6": 72, "K6 linear": 72},
+                      (LN_TEXT, LN_MAIN + 8))
     phase_card_vs_cpu(cfg, "PLPD", "PLPD")
     int8 = phase_path(fa, tq, "PLPD, int8 prefix",
                       config("--prefix_quant", "int8", *PLPD_FLAGS),
-                      {"K1": 27, "K2": 3, "K5": 108}, timed=False)
+                      {"K1": 27, "K2": 3, "K5": 108},
+                      (LN_TEXT, LN_MAIN + 8 + 2 * 18), timed=False)
     return path, int8
 
 
@@ -1530,7 +1708,8 @@ def phase_augmix(fa, tq) -> dict:
     from ttl_tpu_torch.ops.augmix import DEFAULT_AUG_LIST
     cfg = config("--aug_list", ",".join(DEFAULT_AUG_LIST))
     path = phase_path(fa, tq, "AugMix", cfg, {"K1": 15, "K2": 3,
-                                              **K6_PREFIX})
+                                              **K6_PREFIX},
+                      (LN_TEXT, LN_MAIN))
     aug_ms, plain_ms = view_maker_ms(cfg)
     log(f"AugMix view maker, one batch of {cfg.sample_batch} x "
         f"{cfg.batch_size} views (render_views, device): {aug_ms:.4f} ms "
@@ -1603,11 +1782,12 @@ def phase_resnet(fa, tq) -> tuple:
     tpt_cfg = config(*RN50_PROMPT_FLAGS)
     with attention_route(fa, "heads"):
         tpt = phase_path(fa, tq, "RN50 prompt tuning, heads route", tpt_cfg,
-                         {"K4 fwd": 48, "K4 bwd": 12})
+                         {"K4 fwd": 48, "K4 bwd": 12}, (0, 124))
         phase_card_vs_cpu(tpt_cfg, "RN50 prompt tuning, heads route",
                           "RN50 prompt tuning")
     zs_cfg = config("-a", "RN50", "--tta_steps", "0")
-    zero_shot = phase_path(fa, tq, "RN50 zero-shot", zs_cfg, {})
+    zero_shot = phase_path(fa, tq, "RN50 zero-shot", zs_cfg, {},
+                           (LN_TEXT, 0))
     phase_card_vs_cpu(zs_cfg, "RN50 zero-shot")
     return tpt, zero_shot
 
@@ -3064,6 +3244,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from ttl_tpu_torch.ops import _build
     from ttl_tpu_torch.ops import attention as fa
+    from ttl_tpu_torch.ops import layer_norm as tln
     from ttl_tpu_torch.ops import ln_matmul as tlm
     from ttl_tpu_torch.ops import quant as tq
     from ttl_tpu_torch.ops import swiglu as tsw
@@ -3093,17 +3274,22 @@ def main() -> int:
     fwd = phase_forward(fa)
     bwd = phase_backward(fa)
     main_path = phase_path(fa, tq, "main path", config(),
-                           {"K1": 15, "K2": 3, "K5": 0, **K6_PREFIX})
+                           {"K1": 15, "K2": 3, "K5": 0, **K6_PREFIX},
+                           (LN_TEXT, LN_MAIN))
     main_fp = phase_card_vs_cpu(config(), "main path", "main path")
     other = phase_other_geometries(fa)
     k5 = phase_k5(tq)
     int8_path = phase_path(fa, tq, "int8 main path",
                            config("--prefix_quant", "int8"),
-                           {"K1": 15, "K2": 3, "K5": 54})
+                           {"K1": 15, "K2": 3, "K5": 54},
+                           (LN_TEXT, LN_MAIN + 18))
     zero_shot = phase_path(fa, tq, "zero-shot",
                            config("--tta_steps", "0", "--prefix_quant",
                                   "int8", "--ensemble"),
-                           {"K1": 12, "K2": 0, "K5": 72})
+                           {"K1": 12, "K2": 0, "K5": 72},
+                           # the ensemble's text tower over 200 classes x
+                           # 80 templates, 256 prompts a call
+                           (LN_TEXT * -(-200 * 80 // 256), 2 + 24))
     phase_int8_card_vs_cpu("int8 main path", (), main_fp)
     zs_flags = ("--tta_steps", "0", "--ensemble")
     phase_int8_card_vs_cpu("zero-shot", zs_flags,
@@ -3116,13 +3302,14 @@ def main() -> int:
     prompt_cfg = config("--lora_encoder", "prompt")
     with attention_route(fa, "per_head"):
         text_path = phase_path(fa, tq, "text-LoRA, per_head route", text_cfg,
-                               {"K3 fwd": 36, "K3 bwd": 3, **K6_TOWER})
+                               {"K3 fwd": 36, "K3 bwd": 3, **K6_TOWER},
+                               (0, 58))
         _, text_cpu = phase_card_vs_cpu(text_cfg, "text-LoRA, per_head route",
                                         "text-LoRA")
     with attention_route(fa, "heads"):
         prompt_path = phase_path(fa, tq, "prompt tuning, heads route",
                                  prompt_cfg, {"K4 fwd": 60, "K4 bwd": 12,
-                                              **K6_TOWER})
+                                              **K6_TOWER}, (0, 126))
         _, prompt_cpu = phase_card_vs_cpu(prompt_cfg,
                                           "prompt tuning, heads route",
                                           "prompt tuning")
@@ -3130,12 +3317,13 @@ def main() -> int:
     log_einsum_yardstick(fa, prompt_cfg, "prompt tuning", prompt_cpu)
     tpt_lora_cfg = config("--deyo_selection", "False")
     tpt_lora = phase_path(fa, tq, "TPT on LoRA", tpt_lora_cfg,
-                          {"K1": 18, "K2": 3, **K6_PREFIX}, timed=False)
+                          {"K1": 18, "K2": 3, **K6_PREFIX},
+                          (LN_TEXT, LN_MAIN + 7), timed=False)
     phase_card_vs_cpu(tpt_lora_cfg, "TPT on LoRA", "TPT on LoRA")
     k6 = phase_k6(tlm)
     cocoop_cfg = config("--cocoop")
     cocoop_path = phase_path(fa, tq, "CoCoOp", cocoop_cfg,
-                             {"K1": 12, "K6": 48})
+                             {"K1": 12, "K6": 48}, (0, 151))
     phase_cocoop_card_vs_cpu(cocoop_cfg)
     phase_cocoop_load(lib.parent)
     plpd_path, plpd_int8 = phase_plpd(fa, tq)
@@ -3165,7 +3353,8 @@ def main() -> int:
         log(f"phase {phase} took {seconds[phase][1]:.1f} s")
     for phase, run in ((37, phase_bench), (38, phase_bench_tools),
                        (39, lambda: phase_bench_ranks(lib.parent)),
-                       (40, lambda: phase_swiglu(tsw))):
+                       (40, lambda: phase_swiglu(tsw)),
+                       (41, lambda: phase_layer_norm(tln))):
         start = time.perf_counter()
         seconds[phase] = (run(), time.perf_counter() - start)
         log(f"phase {phase} took {seconds[phase][1]:.1f} s")
@@ -3223,6 +3412,11 @@ def main() -> int:
     fc1 = k5[K5_FC1]
     k6_fc1 = k6[K6_FC1]
     swiglu = seconds[40][0]
+    ln_results = seconds[41][0]
+    ln_by_path = {name: r["layer_norm"] for name, r in paths.items()
+                  if "layer_norm" in r}
+    log(f"layernorm launches over each path's run of 16 images: "
+        f"{ln_by_path}")
 
     def other_shapes(kind):
         """K1's or K2's results at OTHER_FWD / OTHER_BWD, by shape."""
@@ -3291,6 +3485,14 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in swiglu.values()),
          "shapes": {f"[{m}, 2 x {f}] {d}": r
                     for (m, f, d), r in swiglu.items()}},
+        {"name": "layer_norm", "route": "cuda",
+         "source": "ttl_tpu_torch/csrc/layer_norm.cu",
+         "replaces": "none (XLA's fused layernorm)",
+         **ln_results[LN_STEP_SHAPES[0]],
+         "max_abs_err": max(r["max_abs_err"] for r in ln_results.values()),
+         "launches_by_path": ln_by_path,
+         "shapes": {f"[{m}, {k}] {d}": r
+                    for (m, k, d), r in ln_results.items()}},
     ]
     print(json.dumps({"kernels": kernels}, default=str))
     print(smi)

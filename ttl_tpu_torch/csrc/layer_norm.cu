@@ -1,0 +1,328 @@
+// Layernorm over the last axis, forward and the gradient with respect to x.
+//
+// For x [M, K] and the layernorm's scale and bias [K] (f32):
+//
+//   forward   mu_m   = mean_k x_mk,  rstd_m = rsqrt(mean_k (x_mk - mu_m)^2
+//                      + eps)                                   (f32)
+//                      (with `ex2` the variance mean_k x_mk^2 - mu_m^2,
+//                      floored at 0)
+//             y_mk   = ((x_mk - mu_m) * rstd_m) * scale_k + bias_k, each
+//                      operation rounded on its own (layer_norm.cuh), then
+//                      once to x's dtype; mu and rstd stored where asked
+//   backward  g_mk   = dy_mk * scale_k,  xh_mk = (x_mk - mu_m) * rstd_m
+//             dx_mk  = rstd_m * (g_mk - mean_k g_mk - xh_mk * mean_k g_mk
+//                      xh_mk)                     (f32, rounded once)
+//
+// the function of models/clip.py::layer_norm (in either TTL_LN_STATS mode)
+// and of its gradient with respect to x, which is the same in both; scale
+// and bias take none on any path.
+//
+// It replaces no TPU kernel: the JAX package leaves its layernorms to XLA,
+// which fuses each into one pass. PyTorch runs the plain version as ten
+// elementwise and reduction passes over the row in f32 (about 68 bytes moved
+// an element where one pass moves 4 in bf16), and its autograd backward
+// keeps two f32 copies of the centered input. Bound: bytes. The forward
+// reads x and writes y, the backward reads x and dy and writes dx, with a
+// few operations a byte, far below the card's ~295 FLOP a byte.
+//
+// Design: each row is read from device memory once and held in registers
+// from the load to the store. Up to K = 1024 one warp takes a row (four rows
+// a block of 128 threads) and reduces by shuffles alone; past it, up to
+// kMaxK = 4096, a block of 128 threads takes a row and its four warps meet
+// in shared memory. Each thread moves a pair of neighbouring columns with one
+// access (__nv_bfloat162 or float2): rows of even K start on boundaries of
+// the pair's size, and EVA02's 2730-wide rows (5460 bytes) on no wider one.
+// kPer pairs a thread, the fewest of {4, 8, 12, 16} that cover the row, so
+// that the loads of a row are in flight together. The statistics and the
+// backward's two means are reduced in a fixed order, so a call gives the
+// same bits every time.
+//
+// C interface (loaded with ctypes): ttl_layer_norm_fwd and
+// ttl_layer_norm_bwd, on the caller's stream; each returns the cudaError_t
+// of its launch, cudaErrorInvalidValue for an odd K, one past kMaxK
+// (ops/layer_norm.py's MAX_K) or an unknown stats code, and
+// cudaErrorMisalignedAddress for a row pointer not on a pair boundary.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <stddef.h>
+#include <stdint.h>
+
+#include "layer_norm.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarpMaxK = 1024;  // one warp a row up to this width
+constexpr int kMaxK = 4096;
+
+// a pair of neighbouring columns of T as two f32 values
+template <typename T> struct Pair;
+
+template <> struct Pair<float> {
+  using V = float2;
+  __device__ static float2 load(const V* p) { return *p; }
+  __device__ static V pack(float a, float b) { return make_float2(a, b); }
+};
+
+template <> struct Pair<__nv_bfloat16> {
+  using V = __nv_bfloat162;
+  __device__ static float2 load(const V* p) { return __bfloat1622float2(*p); }
+  __device__ static V pack(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+};
+
+// the sum of v over the row's kRowThreads threads, the same in each; a
+// block-wide row meets in red (one slot a warp)
+template <int kRowThreads>
+__device__ __forceinline__ float row_sum(float v, float* red) {
+  v = warp_sum(v);
+  if constexpr (kRowThreads == 32) {
+    return v;
+  } else {
+    if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+    __syncthreads();
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kRowThreads / 32; ++w) s += red[w];
+    __syncthreads();  // red is free again for the next sum
+    return s;
+  }
+}
+
+// two sums at once (the backward's)
+template <int kRowThreads>
+__device__ __forceinline__ float2 row_sum2(float a, float b, float2* red) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if constexpr (kRowThreads == 32) {
+    return make_float2(a, b);
+  } else {
+    if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = make_float2(a, b);
+    __syncthreads();
+    float2 s = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kRowThreads / 32; ++w) {
+      s.x += red[w].x;
+      s.y += red[w].y;
+    }
+    return s;
+  }
+}
+
+// kRowThreads threads a row (32: a warp, kThreads: the block), kPer pairs a
+// thread: thread t of a row holds pairs t, t + kRowThreads, ...
+template <typename T, int kRowThreads, int kPer>
+__global__ void __launch_bounds__(kThreads)
+layer_norm_fwd_kernel(const T* __restrict__ x,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ bias, T* __restrict__ y,
+                      float* __restrict__ mu_out,
+                      float* __restrict__ rstd_out, long long rows, int k,
+                      float eps, bool ex2) {
+  using P = Pair<T>;
+  __shared__ float red[kThreads / 32];
+  const long long r = (long long)blockIdx.x * (kThreads / kRowThreads) +
+                      threadIdx.x / kRowThreads;
+  if (r >= rows) return;  // a warp's row past the end; never a block's
+  const int t = threadIdx.x % kRowThreads, half = k / 2;
+  const typename P::V* xr = reinterpret_cast<const typename P::V*>(x) +
+                            r * half;
+  float2 v[kPer];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int j = t + i * kRowThreads;
+    v[i] = j < half ? P::load(xr + j) : make_float2(0.f, 0.f);
+    s += v[i].x + v[i].y;
+  }
+  const float kf = (float)k;
+  const float mu = ln_mean(row_sum<kRowThreads>(s, red), kf);
+  // the squared deviations from mu, or with ex2 the squares
+  const float c = ex2 ? 0.f : mu;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    if (t + i * kRowThreads < half) {
+      const float d0 = v[i].x - c, d1 = v[i].y - c;
+      q += d0 * d0 + d1 * d1;
+    }
+  }
+  const float sq = row_sum<kRowThreads>(q, red);
+  const float rstd = ex2 ? ln_rstd_ex2(sq, mu, kf, eps)
+                         : ln_rstd(sq, kf, eps);
+  typename P::V* yr = reinterpret_cast<typename P::V*>(y) + r * half;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int j = t + i * kRowThreads;
+    if (j < half)
+      yr[j] = P::pack(
+          ln_affine(v[i].x, mu, rstd, __ldg(scale + 2 * j),
+                    __ldg(bias + 2 * j)),
+          ln_affine(v[i].y, mu, rstd, __ldg(scale + 2 * j + 1),
+                    __ldg(bias + 2 * j + 1)));
+  }
+  if (mu_out != nullptr && t == 0) {
+    mu_out[r] = mu;
+    rstd_out[r] = rstd;
+  }
+}
+
+template <typename T, int kRowThreads, int kPer>
+__global__ void __launch_bounds__(kThreads)
+layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ mu_in,
+                      const float* __restrict__ rstd_in, T* __restrict__ dx,
+                      long long rows, int k) {
+  using P = Pair<T>;
+  __shared__ float2 red[kThreads / 32];
+  const long long r = (long long)blockIdx.x * (kThreads / kRowThreads) +
+                      threadIdx.x / kRowThreads;
+  if (r >= rows) return;
+  const int t = threadIdx.x % kRowThreads, half = k / 2;
+  const typename P::V* xr = reinterpret_cast<const typename P::V*>(x) +
+                            r * half;
+  const typename P::V* dr = reinterpret_cast<const typename P::V*>(dy) +
+                            r * half;
+  const float mu = mu_in[r], rstd = rstd_in[r];
+  // xh and g in place of x and dy
+  float2 xh[kPer], g[kPer];
+  float sg = 0.f, sgx = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int j = t + i * kRowThreads;
+    if (j < half) {
+      xh[i] = P::load(xr + j);
+      g[i] = P::load(dr + j);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int j = t + i * kRowThreads;
+    if (j < half) {
+      xh[i].x = (xh[i].x - mu) * rstd;
+      xh[i].y = (xh[i].y - mu) * rstd;
+      g[i].x *= __ldg(scale + 2 * j);
+      g[i].y *= __ldg(scale + 2 * j + 1);
+      sg += g[i].x + g[i].y;
+      sgx += g[i].x * xh[i].x + g[i].y * xh[i].y;
+    }
+  }
+  const float kf = (float)k;
+  const float2 sums = row_sum2<kRowThreads>(sg, sgx, red);
+  const float mg = __fdiv_rn(sums.x, kf), mgx = __fdiv_rn(sums.y, kf);
+  typename P::V* out = reinterpret_cast<typename P::V*>(dx) + r * half;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int j = t + i * kRowThreads;
+    if (j < half)
+      out[j] = P::pack(rstd * (g[i].x - mg - xh[i].x * mgx),
+                       rstd * (g[i].y - mg - xh[i].y * mgx));
+  }
+}
+
+// The route for width k: (threads a row, pairs a thread) -> the launch of
+// Launch::run<T, kRowThreads, kPer>(grid) on the rows
+template <typename T, typename Launch>
+int route(long long rows, int k, Launch launch) {
+  const int half = k / 2;
+  const unsigned warp_grid =
+      static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32));
+  const unsigned block_grid = static_cast<unsigned>(rows);
+  if (half <= 32 * 4) {
+    launch.template run<T, 32, 4>(warp_grid);
+  } else if (half <= 32 * 8) {
+    launch.template run<T, 32, 8>(warp_grid);
+  } else if (half <= 32 * 12) {
+    launch.template run<T, 32, 12>(warp_grid);
+  } else if (k <= kWarpMaxK) {
+    launch.template run<T, 32, 16>(warp_grid);
+  } else if (half <= kThreads * 8) {
+    launch.template run<T, kThreads, 8>(block_grid);
+  } else if (half <= kThreads * 12) {
+    launch.template run<T, kThreads, 12>(block_grid);
+  } else {
+    launch.template run<T, kThreads, 16>(block_grid);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+struct Fwd {
+  const void* x;
+  const float *scale, *bias;
+  void* y;
+  float *mu, *rstd;
+  long long rows;
+  int k;
+  float eps;
+  bool ex2;
+  cudaStream_t s;
+  template <typename T, int kRowThreads, int kPer>
+  void run(unsigned grid) const {
+    layer_norm_fwd_kernel<T, kRowThreads, kPer><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), scale, bias, static_cast<T*>(y), mu, rstd,
+        rows, k, eps, ex2);
+  }
+};
+
+struct Bwd {
+  const void *x, *dy;
+  const float *scale, *mu, *rstd;
+  void* dx;
+  long long rows;
+  int k;
+  cudaStream_t s;
+  template <typename T, int kRowThreads, int kPer>
+  void run(unsigned grid) const {
+    layer_norm_bwd_kernel<T, kRowThreads, kPer><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(dy), scale, mu, rstd,
+        static_cast<T*>(dx), rows, k);
+  }
+};
+
+// 0 where the call fits the kernels, else the error to return
+int refuse(int k, int dtype, const void* a, const void* b, const void* c,
+           const void* d) {
+  if (k < 2 || k % 2 || k > kMaxK || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t pair = dtype == 1 ? 4 : 8;
+  const size_t any = (size_t)a | (size_t)b | (size_t)c | (size_t)d;
+  return any % pair ? static_cast<int>(cudaErrorMisalignedAddress) : 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// x [rows, k] -> y [rows, k] (dtype 0 f32, 1 bf16); scale, bias [k] f32; mu
+// and rstd [rows] f32, or both null; stats 0 the centered variance, 1
+// E[x^2] - mu^2
+int ttl_layer_norm_fwd(const void* x, const float* scale, const float* bias,
+                       void* y, float* mu, float* rstd, int dtype,
+                       long long rows, int k, float eps, int stats,
+                       void* stream) {
+  if (const int rc = refuse(k, dtype, x, y, x, y)) return rc;
+  if (stats != 0 && stats != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  const Fwd f{x, scale, bias, y, mu, rstd, rows, k, eps, stats == 1,
+              static_cast<cudaStream_t>(stream)};
+  return dtype == 1 ? route<__nv_bfloat16>(rows, k, f)
+                    : route<float>(rows, k, f);
+}
+
+// x, dy [rows, k] with the forward's mu, rstd [rows] -> dx [rows, k]
+int ttl_layer_norm_bwd(const void* x, const void* dy, const float* scale,
+                       const float* mu, const float* rstd, void* dx,
+                       int dtype, long long rows, int k, void* stream) {
+  if (const int rc = refuse(k, dtype, x, dy, dx, x)) return rc;
+  if (rows == 0) return 0;
+  const Bwd b{x, dy, scale, mu, rstd, dx, rows, k,
+              static_cast<cudaStream_t>(stream)};
+  return dtype == 1 ? route<__nv_bfloat16>(rows, k, b)
+                    : route<float>(rows, k, b);
+}
+
+}  // extern "C"

@@ -14,7 +14,9 @@ vision tower pads its tokens once per forward to a multiple of 16 (197 ->
 208 at ViT-B/16) with zeros and runs the bshd kernel pair, which masks the
 pad keys; pad rows ride the residual stream and nothing reads them; the
 causal text tower takes the einsum numerics. On the per_head and heads
-routes both towers run K3 or K4 unpadded.
+routes both towers run K3 or K4 unpadded. On the card `layer_norm` runs
+the layernorm kernels of `ops/layer_norm.py` (forward and dx backward);
+the CPU keeps the plain version bit for bit.
 
 With `--prefix_quant int8` the vision parameters carry an int8 copy of the
 frozen prefix under `prefix_q` (`ops/quant.py`), and `vision_prefix` runs
@@ -74,6 +76,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..ops.attention import attention, env_choice, fused_mode
+from ..ops import layer_norm as tln
 from ..ops.ln_matmul import ln_matmul
 from ..ops.quant import linear_q
 from ..parallel import tensor as tp
@@ -147,16 +150,14 @@ def lora_compute_mode() -> str:
 def layer_norm(x: torch.Tensor, p: Params, eps: float) -> torch.Tensor:
     """Layernorm with f32 statistics, output in x's dtype. The variance is
     the centered mean((x - mu)^2), or with TTL_LN_STATS=ex2 E[x^2] - mu^2
-    floored at 0."""
-    x32 = x.float()
-    mu = x32.mean(dim=-1, keepdim=True)
-    if ln_stats_mode() == "ex2":
-        var = (x32.square().mean(dim=-1, keepdim=True)
-               - mu.square()).clamp(min=0.0)
-    else:
-        var = (x32 - mu).square().mean(dim=-1, keepdim=True)
-    y = (x32 - mu) * torch.rsqrt(var + eps)
-    return (y * p["scale"] + p["bias"]).to(x.dtype)
+    floored at 0. A CUDA tensor runs the hand-written kernels, forward and
+    dx backward (`ops.layer_norm.layer_norm`, which raises on a dtype or
+    width they do not take and on a scale or bias that needs a gradient);
+    a CPU tensor the plain version (`layer_norm_plain`)."""
+    stats = ln_stats_mode()
+    if x.is_cuda:
+        return tln.layer_norm(x, p["scale"], p["bias"], eps, stats)
+    return tln.layer_norm_plain(x, p["scale"], p["bias"], eps, stats)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

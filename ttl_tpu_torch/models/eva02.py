@@ -30,10 +30,11 @@ head in f32. RoPE runs under the span `eva.rope`, q and k of a layer in one.
 
 Wherever no gradient can reach the prefix (`vision_prefix`), LN1 -> qkv and
 LN_attn -> o each run as one `ln_matmul` call with the "linear" epilogue
-(K6 on the card, K = 1024, N = 3072 and 1024); LN2 -> w12 is one product,
-then the SwiGLU kernel; LN_ffn and w3 stay `layer_norm` and `linear` (K6
-takes K and N in multiples of 16 and holds its K-wide row tile in shared
-memory; 2730 is neither). The adapted window, the clean-view passes and any
+(K6 on the card, K = 1024, N = 3072 and 1024); LN2 -> w12 is `layer_norm`
+and one product, then the SwiGLU kernel; LN_ffn and w3 stay `layer_norm`
+and `linear` (K6 takes K and N in multiples of 16 and holds its K-wide row
+tile in shared memory; 2730 is neither). On the card each `layer_norm` is
+the layernorm kernel (`ops/layer_norm.py`). The adapted window, the clean-view passes and any
 layer a gradient reaches run the same layer unfolded, which on the CPU is
 the folded one bit for bit. The adapted layers are recomputed in the
 backward (`vision_from_hidden`), so a step runs their forward twice.
@@ -169,7 +170,10 @@ def vision_from_hidden(p: Params, hidden: torch.Tensor,
     then the features [B, proj_dim] f32. Where a gradient flows, each
     adapted layer is checkpointed: it keeps its input alone and runs its
     forward again in the backward (at L/14@336's 512 views a layer's
-    activations take ~22 GB, three of them more than the card holds)."""
+    activations took ~22 GB while the plain layernorm kept two f32 copies
+    of its centered input, three of them more than the card held; with the
+    layernorm kernel and the recompute a step peaks at 19.8 GB on an
+    H100)."""
     lo, hi = adapter_window
     x = hidden
     seq_len = None if x.shape[1] == cfg.seq_len else cfg.seq_len
