@@ -25,6 +25,10 @@ EVA02-CLIP (`benchmark/reference/arch/eva02.py`) on seeded weights, at the
   nothing; the tiny CLIP logits are the values the port gave before the
   EVA02 tower was added, bit for bit; the full-depth launch counts are as
   they were.
+- Both towers through the one ViT skeleton: the tiny EVA02 step's logits,
+  and CoCoOp's frozen tower (`fold="f32"`) of either tower under either
+  TTL_LN_STATS, are the values the port gave while each tower had its own
+  skeleton, bit for bit.
 """
 import hashlib
 import math
@@ -401,9 +405,90 @@ def test_clip_tiny_logits_are_bit_for_bit_as_before(dtype):
         torch.set_num_threads(threads)
     for name, t in (("text", txt), ("adapted", res.logits),
                     ("zero_shot", res.zero_shot_logits)):
-        digest = hashlib.sha256(
-            t.detach().float().contiguous().numpy().tobytes()).hexdigest()
-        assert digest[:16] == CLIP_BITS[(dtype, name)], name
+        assert _digest(t) == CLIP_BITS[(dtype, name)], name
+
+
+def _digest(t):
+    """sha256 (first 16 hex digits) of t's float32 values."""
+    return hashlib.sha256(
+        t.detach().float().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
+# the same digests of the tiny EVA02 step, and of CoCoOp's frozen vision
+# tower (`encode_image` under its "f32" fold request) under either
+# TTL_LN_STATS, as the port computed them before the ViT towers shared one
+# skeleton
+EVA02_BITS = {
+    ("float32", "adapted"): "65f03967347c027b",
+    ("float32", "zero_shot"): "e34f975224d9b4da",
+    ("bfloat16", "adapted"): "903a9b61f7313cd3",
+    ("bfloat16", "zero_shot"): "2fc0773d26be0ea5",
+}
+COCOOP_TOWER_BITS = {
+    ("test-tiny", "centered", "float32"): "f46adeeb02f69e67",
+    ("test-tiny", "centered", "bfloat16"): "2b3040334b86e790",
+    ("test-tiny", "ex2", "float32"): "f32535f695ada68b",
+    ("test-tiny", "ex2", "bfloat16"): "2b3040334b86e790",
+    ("eva02-tiny", "centered", "float32"): "d4821cf35eba5333",
+    ("eva02-tiny", "centered", "bfloat16"): "1f5cb98800114d2b",
+    ("eva02-tiny", "ex2", "float32"): "3819808a07ade763",
+    ("eva02-tiny", "ex2", "bfloat16"): "1f5cb98800114d2b",
+}
+
+
+def _moved(tree, g, path=""):
+    """tree with its layernorms' scales and shifts and its biases moved off
+    1 and 0, so that an epilogue's roundings of the bias show."""
+    if isinstance(tree, dict):
+        return {k: _moved(v, g, f"{path}/{k}") for k, v in tree.items()}
+    if path.endswith("/scale"):
+        return (1 + 0.2 * torch.randn(tree.shape, generator=g)).to(tree.dtype)
+    if path.endswith(("/bias", "/b")):
+        return (0.2 * torch.randn(tree.shape, generator=g)).to(tree.dtype)
+    return tree
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_eva02_tiny_logits_are_bit_for_bit_as_before(dtype):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg = ttl_config(dtype=dtype)
+        clip_cfg, params = load_model(cfg, "cpu")
+        g = torch.Generator().manual_seed(11)
+        classes = F.normalize(torch.randn(6, 16, generator=g), dim=-1)
+        views = torch.randn(2, 8, 3, 64, 64, generator=g)
+        res = make_batched_ttl_fn(clip_cfg, cfg, zero_shot_aux=True)(
+            params, classes, make_adapters0(cfg, clip_cfg, "cpu"), views)
+    finally:
+        torch.set_num_threads(threads)
+    for name, t in (("adapted", res.logits),
+                    ("zero_shot", res.zero_shot_logits)):
+        assert _digest(t) == EVA02_BITS[(dtype, name)], name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stats", ["centered", "ex2"])
+@pytest.mark.parametrize("arch", ["test-tiny", "eva02-tiny"])
+def test_cocoop_frozen_tower_is_bit_for_bit_as_before(arch, stats, dtype,
+                                                      monkeypatch):
+    monkeypatch.setenv("TTL_LN_STATS", stats)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg = ttl_config(arch=arch, dtype=dtype)
+        clip_cfg, params = load_model(cfg, "cpu")
+        vision = _moved(params["vision"], torch.Generator().manual_seed(13))
+        views = torch.randn(6, 3, 64, 64,
+                            generator=torch.Generator().manual_seed(13))
+        with torch.no_grad():
+            feats = tclip.encode_image(vision, views,
+                                       clip_cfg.vision,
+                                       compute_dtype=getattr(torch, dtype),
+                                       fold="f32")
+    finally:
+        torch.set_num_threads(threads)
+    assert _digest(feats) == COCOOP_TOWER_BITS[(arch, stats, dtype)]
 
 
 # --------------------------------------------------------- refused modes
@@ -419,8 +504,8 @@ def test_int8_prefix_and_model_axis_raise(tiny):
                              "b": layers["o"]["b"]}}
     vision = {**params["vision"], "layers": split}
     with pytest.raises(ValueError, match="model axis"):
-        teva.vision_prefix(vision, views[0], clip_cfg.vision, upto=2,
-                           compute_dtype=torch.float32)
+        tclip.vision_prefix(vision, views[0], clip_cfg.vision, upto=2,
+                            compute_dtype=torch.float32)
 
 
 # ------------------------------------------------------------- on the card

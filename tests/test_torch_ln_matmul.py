@@ -1,5 +1,5 @@
-"""K6, layernorm folded into the linear behind it, and the `fused_ln` route
-of the vision tower, against the JAX package on the CPU.
+"""K6, layernorm folded into the linear behind it, and the towers' `fold`
+route (`fold="f32"`, CoCoOp's request), against the JAX package on the CPU.
 
 Inputs are made with numpy from a seed and go through both sides.
 
@@ -13,11 +13,11 @@ Inputs are made with numpy from a seed and go through both sides.
   round the other way: each such flip moves an output by 2^-8 * |w| (about
   2e-4 here), far below one output step (2^-8 * max |out|), which is what a
   flip of the output's own rounding costs.
-- `encoder_layer(fused_ln=True)` and `encode_image(fused_ln=True)` against
+- `encoder_layer(fold="f32")` and `encode_image(fold="f32")` against
   the JAX `encoder_layer` / `encode_image` (layer_norm then linear) at the
   test-tiny size: f32 within 1e-4, the towers' bound in
   tests/test_torch_clip.py; bf16 within a stated number of bf16 steps.
-- `fused_ln=True` with adapters or where a gradient would flow raises;
+- `fold="f32"` with adapters or where a gradient would flow raises;
   with the whole tower int8 the fused call is reached 0 times.
 - The "linear" epilogue of the plain version is `linear(layer_norm(x))`
   (and `quick_gelu` of it) bit for bit; `vision_prefix` folds its frozen
@@ -174,7 +174,7 @@ def test_epilogue_names_are_checked():
         tlm.ln_matmul_cuda(x, scale, bias, w, b, epilogue="bf16")
 
 
-# ------------------------------------------------- the towers' fused_ln route
+# ----------------------------------------------------- the towers' fold route
 
 @pytest.fixture(scope="module")
 def tiny():
@@ -222,7 +222,7 @@ def test_encoder_layer_fused_ln_matches_jax(tiny, dtype, steps):
     kw = dict(heads=2, eps=1e-5, causal=False, seq_len=17)
     with torch.no_grad():
         got = tclip.encoder_layer(tlayer, torch.from_numpy(x).to(tdtype),
-                                  fused_ln=True, **kw)
+                                  fold="f32", **kw)
         unfused = tclip.encoder_layer(tlayer, torch.from_numpy(x).to(tdtype),
                                       **kw)
     assert got.dtype == tdtype and torch.isfinite(got).all()
@@ -252,7 +252,7 @@ def test_encode_image_fused_ln_matches_jax(tiny, dtype, tol):
         got = tclip.encode_image(tparams, torch.from_numpy(images),
                                  TEST_TINY.vision,
                                  compute_dtype=getattr(torch, dtype),
-                                 fused_ln=True).numpy()
+                                 fold="f32").numpy()
     assert got.shape == want.shape == (3, TEST_TINY.vision.proj_dim)
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
 
@@ -264,7 +264,7 @@ def test_fused_ln_refuses_adapters_and_gradients(tiny):
     x = torch.zeros(1, 32, 32)
     lora = {m: {"A": torch.zeros(32, 4), "B": torch.zeros(4, 32)}
             for m in "qv"}
-    kw = dict(heads=2, eps=1e-5, causal=False, seq_len=17, fused_ln=True)
+    kw = dict(heads=2, eps=1e-5, causal=False, seq_len=17, fold="f32")
     with pytest.raises(ValueError, match="LoRA"):
         tclip.encoder_layer(layer, x, lora=lora, **kw)
     with pytest.raises(ValueError, match="forward only"):
@@ -276,7 +276,7 @@ def test_fused_ln_refuses_adapters_and_gradients(tiny):
     with pytest.raises(ValueError, match="LoRA"):
         tclip.vision_features(tparams, torch.from_numpy(images),
                               TEST_TINY.vision, adapters=adapters,
-                              adapter_window=(2, 3), fused_ln=True)
+                              adapter_window=(2, 3), fold="f32")
 
 
 def test_fused_ln_calls_per_layer_and_none_under_a_whole_int8_tower(
@@ -297,7 +297,7 @@ def test_fused_ln_calls_per_layer_and_none_under_a_whole_int8_tower(
     with torch.no_grad():
         fp = tclip.encode_image(tparams["vision"], torch.from_numpy(images),
                                 TEST_TINY.vision,
-                                compute_dtype=torch.float32, fused_ln=True)
+                                compute_dtype=torch.float32, fold="f32")
     assert len(calls) == 4 * TEST_TINY.vision.layers
     assert set(calls) == {(3, 32, 32)}
     calls.clear()
@@ -306,7 +306,7 @@ def test_fused_ln_calls_per_layer_and_none_under_a_whole_int8_tower(
     with torch.no_grad():
         q = tclip.encode_image(qparams["vision"], torch.from_numpy(images),
                                TEST_TINY.vision, compute_dtype=torch.float32,
-                               fused_ln=True)
+                               fold="f32")
     assert calls == []
     assert q.shape == fp.shape and torch.isfinite(q).all()
 

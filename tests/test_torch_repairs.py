@@ -302,7 +302,7 @@ def test_fused_qkv_with_int8_prefix_matches_jax(model):
 
 
 def test_fused_qkv_under_fused_ln_takes_one_product(model, monkeypatch):
-    """Under `fused_ln` a fused layer's q, k and v come from one
+    """Under `fold="f32"` a fused layer's q, k and v come from one
     layernorm + linear call: two calls a layer instead of four, the same
     features."""
     params, _, views = model
@@ -325,7 +325,7 @@ def test_fused_qkv_under_fused_ln_takes_one_product(model, monkeypatch):
         calls.clear()
         got = tclip.encode_image(tclip.fuse_qkv_params(tparams), imgs,
                                  TEST_TINY.vision,
-                                 compute_dtype=torch.float32, fused_ln=True)
+                                 compute_dtype=torch.float32, fold="f32")
     assert calls == [96, 128] * J_TINY.vision.layers
     np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=1e-5)
 

@@ -208,7 +208,7 @@ def test_resnet_features_match_jax(model, dtype):
 
 
 def test_encode_image_dispatches_a_resnet_tower(model):
-    """encode_image takes the ResNet path (fused_ln, which CoCoOp passes,
+    """encode_image takes the ResNet path (fold="f32", which CoCoOp passes,
     has nothing to fold there) and refuses adapters as JAX does."""
     x = np.random.default_rng(7).standard_normal((2, 3, 64, 64)).astype(
         np.float32)
@@ -216,10 +216,9 @@ def test_encode_image_dispatches_a_resnet_tower(model):
     want = np.asarray(jclip.encode_image(_jtree(model["vision"]),
                                          jnp.asarray(x), J_RN_TINY,
                                          compute_dtype=jnp.float32))
-    for fused_ln in (False, True):
+    for fold in (None, "f32"):
         got = tclip.encode_image(tp, torch.from_numpy(x), RN_TINY,
-                                 compute_dtype=torch.float32,
-                                 fused_ln=fused_ln)
+                                 compute_dtype=torch.float32, fold=fold)
         np.testing.assert_allclose(got.numpy(), want, **F32)
     with pytest.raises(ValueError, match="ViT backbone"):
         jclip.encode_image(_jtree(model["vision"]), jnp.asarray(x),

@@ -15,7 +15,7 @@ adaptation produced, for users who want them.
 Where the JAX package vmaps a per-sample program, the port batches: views
 [S, V, 3, H, W], ctx [S, n_ctx, d], the text tower over [S*C, ctx', d],
 sample-major. The vision tower is frozen over all its layers for every
-view, so it runs once under `torch.no_grad()` with `fused_ln=True`: on the
+view, so it runs once under `torch.no_grad()` with `fold="f32"`: on the
 card its layernorm + linear pairs are K6 (`ops/ln_matmul.py`).
 """
 from __future__ import annotations
@@ -120,7 +120,7 @@ def make_cocoop_adapt_fn(clip_cfg: CLIPConfig, cfg: TTLConfig):
         with torch.no_grad():
             vf = l2_normalize(encode_image(
                 params["vision"], views.flatten(0, 1), clip_cfg.vision,
-                compute_dtype=cd, fused_ln=True))            # [S*V, P]
+                compute_dtype=cd, fold="f32"))               # [S*V, P]
             per_sample = vf.unflatten(0, (s, -1))
             pgen_ctx0 = meta_shift(state, per_sample.mean(dim=1))
             clean = per_sample[:, 0]                         # [S, P]

@@ -56,9 +56,9 @@ import numpy as np
 import torch
 
 from ..config import TTLConfig, effective_update_steps, resolve_layer_range
-from ..models import clip, eva02
 from ..models.clip import (CLIPConfig, encode_image, l2_normalize,
-                           text_features, text_features_from_embeddings)
+                           text_features, text_features_from_embeddings,
+                           vision_from_hidden, vision_prefix)
 from ..models.prompts import PromptLearnerState, needed_ctx_len
 from ..ops.augmix import check_aug_ops
 from ..ops.entropy import deyo_loss, select_confident, tpt_loss
@@ -94,13 +94,6 @@ def check_supported(cfg: TTLConfig) -> None:
     """Raise before any work for a config the port refuses: unknown AugMix
     ops."""
     check_aug_ops(cfg.aug_ops)
-
-
-def vit_tower(vcfg):
-    """The ViT tower module of a vision config: `models.eva02` for an
-    EVA02 tower, else `models.clip`; each has `vision_prefix` and
-    `vision_from_hidden`."""
-    return eva02 if isinstance(vcfg, eva02.EVA02VisionConfig) else clip
 
 
 def model_of(mesh) -> Optional[tp.ModelGroup]:
@@ -296,7 +289,6 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
     steps = effective_update_steps(cfg)
     k_sel = _selection_k(cfg)
     vcfg = clip_cfg.vision
-    tower = vit_tower(vcfg)
     plpd_on = plpd_counterfactual(cfg)
     model = model_of(mesh)
     classes = model if (model is not None and on_image
@@ -322,10 +314,9 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
         [S*V', S_pad, D] (image mode), or the normalized image features
         [S*V', P] (text mode, whose class features `txt` may be given)."""
         if on_image:
-            vf = tower.vision_from_hidden(params["vision"], frozen, vcfg,
-                                          adapters=_to_tree(leaves),
-                                          adapter_window=window,
-                                          lora_scale=scale)
+            vf = vision_from_hidden(params["vision"], frozen, vcfg,
+                                    adapters=_to_tree(leaves),
+                                    adapter_window=window, lora_scale=scale)
             return _classify(params, l2_normalize(vf), text_cls, n_samples,
                              classes)
         if txt is None:
@@ -337,8 +328,8 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
         flattened: the prefix hidden state (image mode) or the normalized
         image features (text mode)."""
         if on_image:
-            return tower.vision_prefix(params["vision"], views.flatten(0, 1),
-                                       vcfg, upto=window[0], compute_dtype=cd)
+            return vision_prefix(params["vision"], views.flatten(0, 1),
+                                 vcfg, upto=window[0], compute_dtype=cd)
         return l2_normalize(encode_image(params["vision"], views.flatten(0, 1),
                                          vcfg, compute_dtype=cd))
 
@@ -368,8 +359,8 @@ def make_batched_ttl_fn(clip_cfg: CLIPConfig, cfg: TTLConfig, *,
         with torch.no_grad():
             clean = frozen.unflatten(0, (s, v))[:, 0]
             if on_image:
-                vf = tower.vision_from_hidden(params["vision"], clean, vcfg,
-                                              adapter_window=window)
+                vf = vision_from_hidden(params["vision"], clean, vcfg,
+                                        adapter_window=window)
                 return _classify(params, l2_normalize(vf), text_cls, s,
                                  classes)[:, 0]
             txt = l2_normalize(text_side(params, None))

@@ -1,4 +1,5 @@
-"""CLIP ViT towers as plain functions over parameter dictionaries.
+"""CLIP ViT towers as plain functions over parameter dictionaries, and the
+skeleton every ViT architecture runs in.
 
 Counterpart of `ttl_tpu/models/clip.py`. Parameters are nested dicts of
 tensors in the JAX package's layout: every linear stores `w` as [in, out]
@@ -29,25 +30,33 @@ activation dtype, f32 accumulation; or `f32`: the activation upcast first)
 for the LoRA products. An unknown value raises ValueError.
 
 `fuse_qkv_params` rewrites a tower's q, k and v into one [L, D, 3D] `qkv`
-projection, which `encoder_layer` takes as one product (and, under
-`fused_ln`, one K6 launch).
+projection, which `encoder_layer` takes as one product (and, folded, one K6
+launch).
 
-With `fused_ln=True` (the frozen vision tower of the CoCoOp step, under
-`torch.no_grad()`), a layer's two layernorms fold into the linears behind
-them: q, k, v and fc1 each come from one `ops.ln_matmul.ln_matmul` call, K6
-on the card, four launches a layer, with the JAX `ln_matmul`'s epilogue (the
-bias in f32, one rounding). It is forward only: LoRA adapters or an input
-that a gradient would flow through raise.
+The ViT skeleton (`vision_prefix`, `vision_from_hidden`, `vision_features`)
+is written once. A vision config names its architecture
+(`VisionConfig.tower`), and `TOWERS` maps the name to a `ViTTower`: its
+embedding, its block, its head, its weight draw, and whether its adapted
+window is recomputed in the backward, it takes the int8 prefix and a
+checkpoint converter reads it. CLIP's row is here; `models/eva02.py` adds
+EVA02's.
 
-`vision_prefix` folds its full-precision layers the same way wherever no
-gradient can reach them (`_frozen`: grad mode off, or neither the input nor
-the layers' weights need one; the TTL step's prefix runs under
-`torch.no_grad()`), with K6's "linear" epilogue: the product rounded and the
-bias added in the activation dtype as `linear` does, and at fc1 QuickGELU at
-the points where `quick_gelu` rounds. That is the function of
-`layer_norm` -> `linear` -> `quick_gelu`, the same bits on the CPU; on the
-card only the order of the product's sums differs. K6 computes the centered
-variance only, so under TTL_LN_STATS=ex2 the layers stay unfolded.
+The skeleton decides once, in `vision_prefix`, whether the frozen layers
+fold each layernorm into the linears behind it (`encoder_layer`'s `fold`,
+one `ops.ln_matmul.ln_matmul` call each for q, k, v and fc1, K6 on the
+card). By default they fold wherever no gradient can reach them
+(`_frozen`: grad mode off, or neither the input nor the layers' weights
+need one; the TTL step's prefix runs under `torch.no_grad()`), with K6's
+"linear" epilogue: the product rounded and the bias added in the activation
+dtype as `linear` does, and at fc1 QuickGELU at the points where
+`quick_gelu` rounds. That is the function of `layer_norm` -> `linear` ->
+`quick_gelu`, the same bits on the CPU; on the card only the order of the
+product's sums differs. K6 computes the centered variance only, so under
+TTL_LN_STATS=ex2 the layers stay unfolded. `fold="f32"` is the request of
+the CoCoOp step's frozen tower, under `torch.no_grad()`: K6 with the JAX
+`ln_matmul`'s epilogue (the bias in f32, one rounding) under either
+statistics. A folded layer is forward only: LoRA adapters or an input that
+a gradient would flow through raise.
 
 `encode_image` dispatches a ResNet tower (`models/resnet.py`) to
 `resnet_features`, and `init_clip_params` draws one where the config asks
@@ -69,7 +78,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, ClassVar, Dict, Optional, Tuple, Union
+from typing import (Any, Callable, ClassVar, Dict, NamedTuple, Optional,
+                    Tuple, Union)
 
 import torch
 
@@ -99,6 +109,9 @@ class TowerConfig:
 class VisionConfig(TowerConfig):
     patch: int = 16
     image_size: int = 224
+    # the architecture, a key of TOWERS: a class constant, as TextConfig's
+    # `act` is
+    tower: ClassVar[str] = "clip"
 
     @property
     def grid(self) -> int:
@@ -271,72 +284,60 @@ def _lora_columns(lora: Params, mg: tp.ModelGroup) -> Params:
     return out
 
 
-def _encoder_layer_fused_ln(p: Params, x: torch.Tensor, *, heads: int,
-                            eps: float, causal: bool,
-                            seq_len: Optional[int],
-                            epilogue: str = "f32") -> torch.Tensor:
-    """encoder_layer for a frozen layer, each layernorm folded into the
-    linears that read it, with K6's `epilogue`: "f32" (CoCoOp's, the JAX
-    `ln_matmul`'s) or "linear" (`linear`'s roundings, QuickGELU in fc1's)."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise ValueError("fused_ln is forward only: run the layer under "
-                         "torch.no_grad() or on an input that needs no "
-                         "gradient")
-    mg, heads = _model_split(p, x, heads)
-    if "qkv" in p["attn"]:
-        q, k, v = _split_qkv(_ln_linear(x, p["ln1"], p["attn"]["qkv"], eps,
-                                        epilogue))
-    else:
-        q, k, v = (_ln_linear(x, p["ln1"], p["attn"][name], eps, epilogue)
-                   for name in "qkv")
-    x = x + _out_linear(attention(q, k, v, heads, causal, seq_len),
-                        p["attn"]["o"], mg)
-    if epilogue == "f32":
-        h = quick_gelu(_ln_linear(x, p["ln2"], p["mlp"]["fc1"], eps, "f32"))
-    else:
-        h = _ln_linear(x, p["ln2"], p["mlp"]["fc1"], eps, epilogue, gelu=True)
-    return x + _out_linear(h, p["mlp"]["fc2"], mg)
-
-
 def encoder_layer(p: Params, x: torch.Tensor, *, heads: int, eps: float,
                   causal: bool, lora: Optional[Params] = None,
                   lora_scale: float = 2.0, seq_len: Optional[int] = None,
-                  fused_ln: bool = False,
+                  fold: Optional[str] = None,
                   act: str = "quick_gelu") -> torch.Tensor:
     """Pre-LN transformer block with an MLP whose activation `act` names
     (QuickGELU by default). `lora` adds rank-r
     updates to the q and v projections. A layer with a fused `qkv`
     projection (`fuse_qkv_params`) takes q, k and v from one product.
-    `fused_ln` takes q, k, v and fc1 from `ln_matmul` (frozen layers only:
-    no LoRA, no gradient, QuickGELU)."""
-    if fused_ln:
+    `fold` names K6's epilogue where each layernorm folds into the linears
+    that read it, q, k, v and fc1 each one `ln_matmul` call: "f32" (the
+    JAX `ln_matmul`'s) or "linear" (`linear`'s roundings, QuickGELU in
+    fc1's); None runs the layer unfolded. A folded layer is frozen: no
+    LoRA, no gradient, QuickGELU."""
+    if fold is not None:
         if lora is not None:
-            raise ValueError("fused_ln does not take LoRA adapters: the "
-                             "fused layernorm + linear has no backward")
-        return _encoder_layer_fused_ln(p, x, heads=heads, eps=eps,
-                                       causal=causal, seq_len=seq_len)
+            raise ValueError("fold does not take LoRA adapters: the fused "
+                             "layernorm + linear has no backward")
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise ValueError("fold is forward only: run the layer under "
+                             "torch.no_grad() or on an input that needs no "
+                             "gradient")
     mg, heads = _model_split(p, x, heads)
-    h = layer_norm(x, p["ln1"], eps)
-    if mg is not None:
-        h = tp.copy_to_model(h, mg)
-        if lora is not None:
-            lora = _lora_columns(lora, mg)
-    if "qkv" in p["attn"]:
-        q, k, v = _split_qkv(linear(h, p["attn"]["qkv"]))
+    if fold is None:
+        h = layer_norm(x, p["ln1"], eps)
+        if mg is not None:
+            h = tp.copy_to_model(h, mg)
+            if lora is not None:
+                lora = _lora_columns(lora, mg)
+
+        def proj(lin):
+            return linear(h, lin)
     else:
-        q = linear(h, p["attn"]["q"])
-        k = linear(h, p["attn"]["k"])
-        v = linear(h, p["attn"]["v"])
+        def proj(lin):
+            return _ln_linear(x, p["ln1"], lin, eps, fold)
+    if "qkv" in p["attn"]:
+        q, k, v = _split_qkv(proj(p["attn"]["qkv"]))
+    else:
+        q, k, v = (proj(p["attn"][name]) for name in "qkv")
     if lora is not None:
         q = q + _lora_delta(h, lora["q"], lora_scale).to(q.dtype)
         v = v + _lora_delta(h, lora["v"], lora_scale).to(v.dtype)
     a = attention(q, k, v, heads, causal, seq_len)
     x = x + _out_linear(a, p["attn"]["o"], mg)
-    h = layer_norm(x, p["ln2"], eps)
-    if mg is not None:
-        h = tp.copy_to_model(h, mg)
-    return x + _out_linear(ACTIVATIONS[act](linear(h, p["mlp"]["fc1"])),
-                           p["mlp"]["fc2"], mg)
+    if fold is None:
+        h = layer_norm(x, p["ln2"], eps)
+        if mg is not None:
+            h = tp.copy_to_model(h, mg)
+        h = ACTIVATIONS[act](linear(h, p["mlp"]["fc1"]))
+    elif fold == "f32":
+        h = quick_gelu(_ln_linear(x, p["ln2"], p["mlp"]["fc1"], eps, fold))
+    else:
+        h = _ln_linear(x, p["ln2"], p["mlp"]["fc1"], eps, fold, gelu=True)
+    return x + _out_linear(h, p["mlp"]["fc2"], mg)
 
 
 def encoder_layer_q(pq: Params, x: torch.Tensor, *, heads: int, eps: float,
@@ -354,28 +355,22 @@ def encoder_layer_q(pq: Params, x: torch.Tensor, *, heads: int, eps: float,
                         pq["mlp"]["fc2"])
 
 
-def _run_layers(stacked: Params, x: torch.Tensor, lo: int, hi: int, *,
-                heads: int, eps: float, causal: bool, remat: bool = False,
-                seq_len: Optional[int] = None,
-                fold: Optional[str] = None,
-                act: str = "quick_gelu") -> torch.Tensor:
-    """Layers [lo, hi) without adapters. With `remat`, where a gradient
-    flows, each layer is checkpointed: only its input is saved and its
-    internals (the attention inputs and probabilities among them) are
-    recomputed in the backward. Exact either way. `fold` names K6's
-    epilogue where each layernorm folds into the linears behind it ("f32"
-    or "linear"; None: unfolded; QuickGELU layers only). `act` is the
-    unfolded layers' MLP activation."""
+def _run_layers(stacked: Params, x: torch.Tensor, lo: int, hi: int,
+                block: Callable, *, remat: bool = False,
+                adapters: Optional[Params] = None, **kw) -> torch.Tensor:
+    """Layers [lo, hi) of `stacked`, each `block(layer, x, **kw)`.
+    `adapters` (leaves [L, ...] or [S, L, ...], L counted from lo) give
+    each layer its `lora`. With `remat`, where a gradient flows (through x,
+    or into the adapters), each layer is checkpointed: only its input is
+    saved and its internals (the attention inputs and probabilities among
+    them) are recomputed in the backward. Exact either way."""
     def layer(i, h):
-        if fold is not None:
-            return _encoder_layer_fused_ln(layer_at(stacked, i), h,
-                                           heads=heads, eps=eps,
-                                           causal=causal, seq_len=seq_len,
-                                           epilogue=fold)
-        return encoder_layer(layer_at(stacked, i), h, heads=heads, eps=eps,
-                             causal=causal, seq_len=seq_len, act=act)
+        lora = {} if adapters is None else {
+            "lora": tree_map(lambda a: a.select(-3, i - lo), adapters)}
+        return block(layer_at(stacked, i), h, **lora, **kw)
 
-    remat = remat and torch.is_grad_enabled() and x.requires_grad
+    remat = remat and torch.is_grad_enabled() and (
+        adapters is not None or x.requires_grad)
     for i in range(lo, hi):
         x = (torch.utils.checkpoint.checkpoint(layer, i, x,
                                                use_reentrant=False)
@@ -409,27 +404,58 @@ def _frozen(stacked: Params, x: torch.Tensor) -> bool:
     return not x.requires_grad and not any(t.requires_grad for t in leaves)
 
 
-def vision_prefix(p: Params, images: torch.Tensor, cfg: VisionConfig, *,
-                  upto: int, compute_dtype=torch.bfloat16,
-                  fused_ln: bool = False) -> torch.Tensor:
-    """Patchify + embed + frozen layers [0, upto) -> hidden [B, S_pad, D].
-    With an int8 copy under p["prefix_q"], its first min(upto, n_q) layers
-    run int8 and the fp layers finish the range (none when the whole tower
-    is quantised and its fp stack dropped). `fused_ln` folds the fp layers'
-    layernorms with K6's "f32" epilogue; without it they fold with its
-    "linear" epilogue wherever no gradient can reach them (`_frozen`) and
-    the layernorm is the centered one. The int8 layers keep their own
-    linears."""
+class ViTTower(NamedTuple):
+    """A ViT architecture's pieces, under the name its vision config gives
+    (`VisionConfig.tower`); `vision_prefix`, `vision_from_hidden` and
+    `vision_features` are the skeleton around them."""
+    # (p, images, cfg, compute_dtype) -> tokens [B, S, D], unpadded
+    embed: Callable
+    # (layer, x, cfg, *, lora, lora_scale, seq_len, fold) -> x
+    block: Callable
+    # (p, x, cfg) -> features [B, proj_dim] f32 of x's class token
+    head: Callable
+    # (gen, cfg) -> the tower's weights on the host
+    init: Callable
+    # the adapted window is checkpointed where a gradient flows
+    remat_window: bool
+    # the frozen prefix may run int8 (`ops/quant.py`)
+    int8: bool
+    # a checkpoint converter reads it (`models/convert.py`)
+    converter: bool
+
+
+def patch_tokens(p: Params, images: torch.Tensor, cfg: VisionConfig,
+                 compute_dtype, bias: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Patchify, the patch product in f32 (plus `bias` in f32, rounded
+    once), then the class token and the positions: [B, S, D]."""
     b = images.shape[0]
     g, pt = cfg.grid, cfg.patch
     x = images.to(compute_dtype)
     x = x.reshape(b, 3, g, pt, g, pt).permute(0, 2, 4, 1, 3, 5)
     x = x.reshape(b, g * g, 3 * pt * pt)
-    x = mm_f32(x, p["patch_embed"].to(compute_dtype)).to(compute_dtype)
+    x = mm_f32(x, p["patch_embed"].to(compute_dtype))
+    if bias is not None:
+        x = x + bias.float()
+    x = x.to(compute_dtype)
     cls = p["class_embed"].to(compute_dtype).expand(b, 1, cfg.hidden)
-    x = torch.cat([cls, x], dim=1) + p["pos_embed"].to(compute_dtype)
-    x = layer_norm(x, p["ln_pre"], cfg.ln_eps)
-    x, seq_len = pad_tokens(x)
+    return torch.cat([cls, x], dim=1) + p["pos_embed"].to(compute_dtype)
+
+
+def vision_prefix(p: Params, images: torch.Tensor, cfg: VisionConfig, *,
+                  upto: int, compute_dtype=torch.bfloat16,
+                  fold: Optional[str] = None) -> torch.Tensor:
+    """Patchify + embed + frozen layers [0, upto) -> hidden [B, S_pad, D].
+    With an int8 copy under p["prefix_q"], its first min(upto, n_q) layers
+    run int8 and the fp layers finish the range (none when the whole tower
+    is quantised and its fp stack dropped). The fp layers fold each
+    layernorm into the linears behind it with K6's "linear" epilogue
+    wherever no gradient can reach them (`_frozen`) and the layernorm is
+    the centered one, and run unfolded elsewhere; `fold="f32"` (CoCoOp's
+    request) folds them with K6's "f32" epilogue under either statistics.
+    The int8 layers keep their own linears."""
+    tower = TOWERS[cfg.tower]
+    x, seq_len = pad_tokens(tower.embed(p, images, cfg, compute_dtype))
     nq = 0
     qp = p.get("prefix_q")
     if qp is not None:
@@ -437,41 +463,35 @@ def vision_prefix(p: Params, images: torch.Tensor, cfg: VisionConfig, *,
         for i in range(nq):
             x = encoder_layer_q(layer_at(qp, i), x, heads=cfg.heads,
                                 eps=cfg.ln_eps, seq_len=seq_len)
-    if fused_ln:
-        fold = "f32"
-    elif _frozen(p["layers"], x) and ln_stats_mode() == "centered":
+    if (fold is None and _frozen(p["layers"], x)
+            and ln_stats_mode() == "centered"):
         fold = "linear"
-    else:
-        fold = None
-    return _run_layers(p["layers"], x, nq, upto, heads=cfg.heads,
-                       eps=cfg.ln_eps, causal=False, seq_len=seq_len,
-                       fold=fold)
+    return _run_layers(p["layers"], x, nq, upto, tower.block, cfg=cfg,
+                       seq_len=seq_len, fold=fold)
 
 
 def vision_from_hidden(p: Params, hidden: torch.Tensor, cfg: VisionConfig, *,
                        adapters: Optional[Params] = None,
                        adapter_window: Tuple[int, int] = (9, 11),
                        lora_scale: float = 2.0) -> torch.Tensor:
-    """Layers [adapter_window[0], end) from a prefix hidden state, then
-    ln_post on the class token and the f32 projection. `adapters` leaves
-    are [L, ...] (one set) or [S, L, ...] (one set per sample)."""
+    """Layers [adapter_window[0], end) from a prefix hidden state, LoRA on
+    the window where `adapters` (leaves [L, ...] or [S, L, ...]) are given,
+    then the tower's head: features [B, proj_dim] f32. Where a gradient
+    flows, the layers after the window are checkpointed, and the window's
+    too where the tower asks for it (`ViTTower.remat_window`)."""
+    tower = TOWERS[cfg.tower]
     lo, hi = adapter_window
     x = hidden
-    seq_len = None if x.shape[1] == cfg.seq_len else cfg.seq_len
-    if adapters is None:
-        x = _run_layers(p["layers"], x, lo, cfg.layers, heads=cfg.heads,
-                        eps=cfg.ln_eps, causal=False, seq_len=seq_len)
-    else:
-        for i in range(lo, hi + 1):
-            lora = tree_map(lambda a: a.select(-3, i - lo), adapters)
-            x = encoder_layer(layer_at(p["layers"], i), x, heads=cfg.heads,
-                              eps=cfg.ln_eps, causal=False, lora=lora,
-                              lora_scale=lora_scale, seq_len=seq_len)
-        x = _run_layers(p["layers"], x, hi + 1, cfg.layers, heads=cfg.heads,
-                        eps=cfg.ln_eps, causal=False, remat=True,
-                        seq_len=seq_len)
-    pooled = layer_norm(x[:, 0], p["ln_post"], cfg.ln_eps)
-    return mm_f32(pooled, p["proj"])
+    run = dict(cfg=cfg,
+               seq_len=None if x.shape[1] == cfg.seq_len else cfg.seq_len)
+    if adapters is not None:
+        x = _run_layers(p["layers"], x, lo, hi + 1, tower.block,
+                        remat=tower.remat_window, adapters=adapters,
+                        lora_scale=lora_scale, **run)
+        lo = hi + 1
+    x = _run_layers(p["layers"], x, lo, cfg.layers, tower.block,
+                    remat=adapters is not None, **run)
+    return tower.head(p, x, cfg)
 
 
 def vision_features(p: Params, images: torch.Tensor, cfg: VisionConfig, *,
@@ -479,38 +499,35 @@ def vision_features(p: Params, images: torch.Tensor, cfg: VisionConfig, *,
                     adapter_window: Tuple[int, int] = (9, 11),
                     lora_scale: float = 2.0,
                     compute_dtype=torch.bfloat16,
-                    fused_ln: bool = False) -> torch.Tensor:
-    """Images [B, 3, H, W] (CLIP-normalized) -> features [B, proj_dim] f32.
-    `fused_ln` is for the frozen tower: with adapters it raises."""
-    if fused_ln and adapters is not None:
-        raise ValueError("fused_ln does not take LoRA adapters: the fused "
+                    fold: Optional[str] = None) -> torch.Tensor:
+    """Images [B, 3, H, W] (CLIP-normalized) -> features [B, proj_dim] f32:
+    `vision_prefix`, then `vision_from_hidden` on its output (detached
+    where adapters are given). `fold="f32"` is for the frozen tower: with
+    adapters it raises."""
+    if fold is not None and adapters is not None:
+        raise ValueError("fold does not take LoRA adapters: the fused "
                          "layernorm + linear has no backward")
     lo = adapter_window[0] if adapters is not None else cfg.layers
     hidden = vision_prefix(p, images, cfg, upto=lo,
-                           compute_dtype=compute_dtype, fused_ln=fused_ln)
-    if adapters is None:
-        pooled = layer_norm(hidden[:, 0], p["ln_post"], cfg.ln_eps)
-        return mm_f32(pooled, p["proj"])
-    return vision_from_hidden(p, hidden.detach(), cfg, adapters=adapters,
-                              adapter_window=adapter_window,
-                              lora_scale=lora_scale)
+                           compute_dtype=compute_dtype, fold=fold)
+    return vision_from_hidden(
+        p, hidden if adapters is None else hidden.detach(), cfg,
+        adapters=adapters, adapter_window=(lo, adapter_window[1]),
+        lora_scale=lora_scale)
 
 
 def encode_image(p: Params, images: torch.Tensor, vision_cfg, *,
-                 compute_dtype=torch.bfloat16, fused_ln: bool = False,
+                 compute_dtype=torch.bfloat16, fold: Optional[str] = None,
                  **lora_kw) -> torch.Tensor:
-    """Backbone dispatcher: the ViT tower (VisionConfig) or the ModifiedResNet
-    (ResNetVisionConfig), the EVA02 tower (`models/eva02.py`) among the
-    ViTs. The LoRA kwargs of `vision_features` apply to the
-    ViT only, as in the reference; a ResNet given adapters raises. A ResNet
-    has no layernorm to fold, so it ignores `fused_ln`."""
+    """Backbone dispatcher: a ViT tower (VisionConfig, any of TOWERS) or the
+    ModifiedResNet (ResNetVisionConfig). The LoRA kwargs of
+    `vision_features` apply to the ViT only, as in the reference; a ResNet
+    given adapters raises. A ResNet has no layernorm to fold, so it ignores
+    `fold`."""
     if isinstance(vision_cfg, VisionConfig):
-        from . import eva02
-        features = (eva02.vision_features
-                    if isinstance(vision_cfg, eva02.EVA02VisionConfig)
-                    else vision_features)
-        return features(p, images, vision_cfg, compute_dtype=compute_dtype,
-                        fused_ln=fused_ln, **lora_kw)
+        return vision_features(p, images, vision_cfg,
+                               compute_dtype=compute_dtype, fold=fold,
+                               **lora_kw)
     if lora_kw.get("adapters") is not None:
         raise ValueError("LoRA adapters require a ViT backbone "
                          "(the reference's TTL path is ViT-only)")
@@ -545,19 +562,18 @@ def text_features(p: Params, tokens: torch.Tensor, cfg: TextConfig, *,
     x = x + p["pos_embed"][: x.shape[1]].to(compute_dtype)
     run = dict(heads=cfg.heads, eps=cfg.ln_eps, causal=True, act=cfg.act)
     if adapters is None:
-        x = _run_layers(p["layers"], x, 0, cfg.layers, **run)
+        x = _run_layers(p["layers"], x, 0, cfg.layers, encoder_layer, **run)
         return _pool_eot(x, tokens, p, cfg)
     lo, hi = adapter_window
     with torch.no_grad():
-        x = _run_layers(p["layers"], x, 0, lo, **run)
+        x = _run_layers(p["layers"], x, 0, lo, encoder_layer, **run)
     a = adapters["q"]["A"]
     if a.dim() == 4:
         x = x.repeat(a.shape[0], 1, 1)
-    for i in range(lo, hi + 1):
-        lora = tree_map(lambda t: t.select(-3, i - lo), adapters)
-        x = encoder_layer(layer_at(p["layers"], i), x, lora=lora,
-                          lora_scale=lora_scale, **run)
-    x = _run_layers(p["layers"], x, hi + 1, cfg.layers, remat=True, **run)
+    x = _run_layers(p["layers"], x, lo, hi + 1, encoder_layer,
+                    adapters=adapters, lora_scale=lora_scale, **run)
+    x = _run_layers(p["layers"], x, hi + 1, cfg.layers, encoder_layer,
+                    remat=True, **run)
     return _pool_eot(x, tokens, p, cfg)
 
 
@@ -573,8 +589,9 @@ def text_features_from_embeddings(p: Params, embeddings: torch.Tensor,
     probabilities of all layers would otherwise stay alive together."""
     x = embeddings.to(compute_dtype) \
         + p["pos_embed"][: embeddings.shape[1]].to(compute_dtype)
-    x = _run_layers(p["layers"], x, 0, cfg.layers, heads=cfg.heads,
-                    eps=cfg.ln_eps, causal=True, remat=remat, act=cfg.act)
+    x = _run_layers(p["layers"], x, 0, cfg.layers, encoder_layer,
+                    heads=cfg.heads, eps=cfg.ln_eps, causal=True,
+                    remat=remat, act=cfg.act)
     return _pool_eot(x, tokens, p, cfg)
 
 
@@ -629,17 +646,13 @@ def init_clip_params(cfg: CLIPConfig, gen: torch.Generator, *,
     from `gen` on the host: for runs that have no checkpoint. Layernorm
     parameters and logit_scale stay f32, every other leaf is param_dtype;
     a ResNet tower keeps its batchnorms and attention pool in f32
-    (`init_resnet_params`); an EVA02 tower is drawn by
-    `models.eva02.init_vision`."""
-    from .eva02 import EVA02VisionConfig, init_vision
+    (`init_resnet_params`); a ViT tower is drawn by its `ViTTower.init`."""
     v, t = cfg.vision, cfg.text
     if isinstance(v, ResNetVisionConfig):
         vision = init_resnet_params(v, gen, device=device,
                                     param_dtype=param_dtype)
-    elif isinstance(v, EVA02VisionConfig):
-        vision = _placed(init_vision(gen, v), device, param_dtype)
     else:
-        vision = _placed(_init_vit_vision(gen, v), device, param_dtype)
+        vision = _placed(TOWERS[v.tower].init(gen, v), device, param_dtype)
     text = {
         "token_embed": _normal(gen, (t.vocab, t.hidden), 0.02),
         "pos_embed": _normal(gen, (t.ctx, t.hidden), 0.01),
@@ -663,3 +676,29 @@ def _init_vit_vision(gen: torch.Generator, v: VisionConfig) -> Params:
         "ln_post": _init_ln(v.hidden),
         "proj": _normal(gen, (v.hidden, v.proj_dim), 0.02),
     }
+
+
+def _clip_embed(p: Params, images: torch.Tensor, cfg: VisionConfig,
+                compute_dtype) -> torch.Tensor:
+    return layer_norm(patch_tokens(p, images, cfg, compute_dtype),
+                      p["ln_pre"], cfg.ln_eps)
+
+
+def _clip_block(p: Params, x: torch.Tensor, cfg: VisionConfig,
+                **kw) -> torch.Tensor:
+    return encoder_layer(p, x, heads=cfg.heads, eps=cfg.ln_eps,
+                         causal=False, **kw)
+
+
+def _clip_head(p: Params, x: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
+    """ln_post on the class token, then the projection, in f32."""
+    return mm_f32(layer_norm(x[:, 0], p["ln_post"], cfg.ln_eps), p["proj"])
+
+
+# every ViT architecture under its VisionConfig.tower; a tower's module adds
+# its own row (`models/eva02.py`)
+TOWERS: Dict[str, ViTTower] = {
+    "clip": ViTTower(embed=_clip_embed, block=_clip_block, head=_clip_head,
+                     init=_init_vit_vision, remat_window=False, int8=True,
+                     converter=True),
+}

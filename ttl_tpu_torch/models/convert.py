@@ -26,7 +26,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .clip import CLIPConfig, TextConfig, VisionConfig
+from .clip import TOWERS, CLIPConfig, TextConfig, VisionConfig
 from .resnet import ResNetVisionConfig, convert_openai_resnet
 
 
@@ -353,7 +353,15 @@ def load_checkpoint(path: str, cfg: CLIPConfig = None,
     """A local CLIP checkpoint: torch .pt/.bin (HF or OpenAI layout, told
     apart by its keys), .safetensors, or a .npz cache of `save_pytree`.
     Returns (numpy tree in the JAX package's layout, cfg); an OpenAI
-    checkpoint read without `cfg` gives its config from its shapes."""
+    checkpoint read without `cfg` gives its config from its shapes. A ViT
+    tower that no converter reads (`ViTTower.converter`) raises before
+    anything is read."""
+    v = None if cfg is None else cfg.vision
+    if isinstance(v, VisionConfig) and not TOWERS[v.tower].converter:
+        name = v.tower.upper()
+        raise ValueError(f"--checkpoint_path: no converter reads {name} "
+                         f"checkpoints; the {name} tower runs on random "
+                         "weights")
     path = str(path)
     if path.endswith(".npz"):
         if cfg is None:

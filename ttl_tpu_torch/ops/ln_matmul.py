@@ -23,9 +23,10 @@ epilogue:
 the kernel does not take raises. `ln_matmul.launches` grows by one at each
 kernel launch, `ln_matmul.linear_launches` at each launch with the "linear"
 epilogue. There is no backward: its callers are the frozen vision tower of
-the CoCoOp step (`models.clip.encoder_layer(fused_ln=True)`, "f32") and the
+the CoCoOp step (`models.clip.encode_image(fold="f32")`, "f32") and the
 frozen prefix wherever no gradient reaches it
-(`models.clip.vision_prefix`, "linear").
+(`models.clip.vision_prefix`, "linear"); `models.clip.encoder_layer`'s
+`fold` names the epilogue.
 """
 from __future__ import annotations
 

@@ -198,16 +198,16 @@ def attach_prefix_quant(params: Params, upto: int, *,
 
 def quant_prefix_len(cfg, clip_cfg) -> int:
     """How many vision layers a config may quantise: those below the LoRA
-    window when the image encoder is adapted, else the whole tower. The
-    EVA02 tower has no int8 layer: it raises."""
+    window when the image encoder is adapted, else the whole tower. A ViT
+    tower without int8 layers (`ViTTower.int8`) raises."""
     from ..config import resolve_layer_range
-    from ..models.clip import VisionConfig
-    from ..models.eva02 import EVA02VisionConfig
-    if isinstance(clip_cfg.vision, EVA02VisionConfig):
-        raise ValueError("the int8 prefix (--prefix_quant int8) is not "
-                         "supported on the EVA02 vision tower")
+    from ..models.clip import TOWERS, VisionConfig
     if not isinstance(clip_cfg.vision, VisionConfig):
         return 0
+    if not TOWERS[clip_cfg.vision.tower].int8:
+        raise ValueError("the int8 prefix (--prefix_quant int8) is not "
+                         f"supported on the {clip_cfg.vision.tower.upper()} "
+                         "vision tower")
     image_adapted = (cfg.lora_encoder == "image" and cfg.tta_steps > 0
                      and not cfg.cocoop)
     return (resolve_layer_range(cfg, clip_cfg)[0] if image_adapted

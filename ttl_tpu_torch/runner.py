@@ -66,7 +66,6 @@ from .models.clip import (VisionConfig, init_clip_params, l2_normalize,
                           lora_compute_mode, ln_stats_mode,
                           text_features_from_embeddings)
 from .models.convert import load_checkpoint, params_from_numpy
-from .models.eva02 import EVA02VisionConfig
 from .models.prompts import (build_ensemble_classifier, build_text_classifier,
                              init_prompt_learner, prompt_tokens)
 from .models.zoo import get_arch
@@ -98,10 +97,6 @@ def load_model(cfg: TTLConfig, device):
     pdtype = (torch.bfloat16 if cfg.param_dtype == "bfloat16"
               else torch.float32)
     if cfg.checkpoint_path:
-        if isinstance(clip_cfg.vision, EVA02VisionConfig):
-            raise ValueError("--checkpoint_path: no converter reads EVA02 "
-                             "checkpoints; the EVA02 tower runs on random "
-                             "weights")
         tree, clip_cfg = load_checkpoint(cfg.checkpoint_path, clip_cfg)
         params = params_from_numpy(tree, device, pdtype)
     else:
