@@ -217,7 +217,19 @@ per source, side by side), then:
    LN_EX2_SHAPE. Every path that `phase_path` runs checks its layernorm
    launches over its 16-image run (`layer_norm` in its result): the class
    table's text tower once, where the path encodes one, and a count a
-   batch.
+   batch;
+42. EVA02's MLP at the stride the card stores it on (`models/eva02.py::
+   card_layout`, 2730 -> 2736 columns): the four products of the
+   eva02l14-336-offline step's SwiGLU MLPs at its MLP_ROWS rows, h @ w12 +
+   b, s @ w3 + b, dY @ w3^T and d[u|g] @ w12^T, each at F = 2730 and at
+   2736 with zero padding, their median times, TFLOP/s at the true width's
+   operations and the device kernel cuBLAS ran (torch.profiler); the padded
+   products' true columns against the unpadded ones' within MLP_BOUND; then
+   LN_ffn's kernel on the 2736-wide rows at the logical width 2730, forward
+   and dx, against the plain version as phase 41 holds it (the padding
+   filled with values it must not read, y and dx exactly 0 past 2730, a
+   launch and a strided launch counted each way), its median times beside
+   the unmasked kernel's at 2730.
 
 K6 with `linear`'s epilogue ("K6 linear" in the launch counts, which "K6"
 counts too) runs q, k, v and fc1 of every full-precision vision layer that
@@ -447,6 +459,16 @@ LN_TEXT = 25
 LN_MAIN = 21
 # the shape the ex2 statistics are checked at
 LN_EX2_SHAPE = (2 * 592 + 1, 2730, torch.bfloat16)
+# EVA02-L/14@336's MLP (phase 42): the step's rows (512 views of 592 padded
+# tokens), its width D, its SwiGLU width F and the width the card stores F at
+MLP_ROWS = 512 * 592
+MLP_D, MLP_F, MLP_FP = 1024, 2730, 2736
+# a padded product's true columns against the unpadded product's: f32 sums
+# over the same terms (plus zeros) in another order, rounded to bf16 and,
+# in `linear`, rounded again after the bias add: one bf16 step of the
+# output (2^-7 of it) at each rounding, plus 2^-12 of the largest where the
+# bias add cancels
+MLP_BOUND = (2.0 ** -6, 2.0 ** -12)
 # The CoCoOp sample of the card-against-CPU run. With random weights the
 # features barely depend on the image and the two best of the 200 classes
 # lie close: of the images made from seeds 1 to 12, this one keeps them
@@ -910,22 +932,26 @@ def ln_inputs(g, rows: int, k: int, dtype):
     return x, scale, bias, dy
 
 
-def ln_against_plain(tln, x, scale, bias, dy, eps, stats: str):
-    """The layernorm kernels' forward and dx on x, a launch counted each,
-    against the plain version's and autograd through it within LN_BOUND,
-    LN_SHARE and LN_BWD_BOUND: (the errors and differing shares by way,
-    y, dx, the plain y and the input leaf)."""
+def ln_against_plain(tln, x, scale, bias, dy, eps, stats: str,
+                     width=None):
+    """The layernorm kernels' forward and dx on x, a launch counted each
+    (and a strided launch where `width` is below the row), against the
+    plain version's and autograd through it within LN_BOUND, LN_SHARE and
+    LN_BWD_BOUND: (the errors and differing shares by way, y, dx, the plain
+    y and the input leaf)."""
     rows, k = x.shape
-    shape = f"[{rows}, {k}] {x.dtype}, {stats}"
+    shape = f"[{rows}, {k}] {x.dtype}, {stats}, width {width or k}"
     leaf = x.detach().requires_grad_(True)
-    before = tln.layer_norm.launches
-    out = tln.layer_norm(leaf, scale, bias, eps, stats)
+    before = tln.layer_norm.launches, tln.layer_norm.strided_launches
+    out = tln.layer_norm(leaf, scale, bias, eps, stats, width)
     (grad,) = torch.autograd.grad(out, leaf, dy)
     torch.cuda.synchronize()
-    if tln.layer_norm.launches != before + 2:
+    strided = 2 if (width or k) < k else 0
+    if (tln.layer_norm.launches, tln.layer_norm.strided_launches) != (
+            before[0] + 2, before[1] + strided):
         raise AssertionError(f"layernorm at {shape}: a forward and a "
                              "backward were not counted")
-    plain = tln.layer_norm_plain(leaf, scale, bias, eps, stats)
+    plain = tln.layer_norm_plain(leaf, scale, bias, eps, stats, width)
     (plain_grad,) = torch.autograd.grad(plain, leaf, dy, retain_graph=True)
     errs = {}
     for which, got, want, (rel, floor), share_bound in (
@@ -1014,6 +1040,125 @@ def phase_layer_norm(tln) -> dict:
         "max_abs_err": max(e for e, _ in errs.values()),
         "fwd_max_abs_err": errs["fwd"][0], "bwd_max_abs_err": errs["bwd"][0],
         "fwd_differing": errs["fwd"][1], "bwd_differing": errs["bwd"][1]}
+    return results
+
+
+def mlp_weights(g, padded: bool) -> dict:
+    """EVA02-L/14@336's MLP weights of one layer (w12, w3 and their biases,
+    bf16, drawn from g), laid out by `models/eva02.py::card_layout` where
+    `padded` (W1 | 0 | W2 | 0 and w3's zero rows at 2736 columns)."""
+    from ttl_tpu_torch.models.clip import tree_map
+    from ttl_tpu_torch.models.eva02 import card_layout
+    from ttl_tpu_torch.models.zoo import get_arch
+    vcfg = get_arch("EVA02-CLIP-L-14-336").vision
+    d, f = MLP_D, MLP_F
+    w1, w2, w3 = (0.02 * torch.randn(*shape, device="cuda", generator=g)
+                  for shape in ((d, f), (d, f), (f, d)))
+    b1, b2, b3 = (0.02 * torch.randn(n, device="cuda", generator=g)
+                  for n in (f, f, d))
+    layers = {"w12": {"w": torch.cat([w1, w2], -1),
+                      "b": torch.cat([b1, b2], -1)},
+              "w3": {"w": w3, "b": b3},
+              "ln_ffn": {"scale": torch.ones(f, device="cuda"),
+                         "bias": torch.zeros(f, device="cuda")}}
+    if padded:
+        layers = card_layout({"layers": layers}, vcfg)["layers"]
+    return tree_map(lambda t: t.to(torch.bfloat16),
+                    {"w12": layers["w12"], "w3": layers["w3"]})
+
+
+def phase_mlp_stride(tln) -> dict:
+    """EVA02's MLP products at F = MLP_F and its stored width MLP_FP, and
+    LN_ffn's kernel at the logical width (see the module's phase 42)."""
+    from ttl_tpu_torch.models.clip import linear
+    g = torch.Generator("cuda").manual_seed(SEED + 42)
+    rows, d, f = MLP_ROWS, MLP_D, MLP_F
+    pad = torch.nn.functional.pad
+    h, dy, s0, dgu0 = (torch.randn(rows, n, device="cuda", generator=g).to(
+        torch.bfloat16) for n in (d, d, f, 2 * f))
+    # the true width's operations: 2 M D 2F for w12's two, 2 M F D for w3's
+    flops = {"h @ w12 + b": 4 * rows * d * f, "s @ w3 + b": 2 * rows * f * d,
+             "dY @ w3^T": 2 * rows * d * f, "d[u|g] @ w12^T": 4 * rows * f * d}
+    results, outs = {}, {}
+    for fp in (f, MLP_FP):
+        w = mlp_weights(torch.Generator("cuda").manual_seed(SEED + 42),
+                        fp != f)
+        if w["w3"]["w"].shape[0] != fp:
+            raise AssertionError(f"card_layout stored F = {f} at "
+                                 f"{w['w3']['w'].shape[0]}, not {fp}")
+        # the same hidden and gradient, zero past F in each half
+        s_ = pad(s0, (0, fp - f))
+        dgu = torch.cat([pad(half, (0, fp - f))
+                         for half in dgu0.chunk(2, dim=-1)], -1)
+        w12t, w3t = w["w12"]["w"].t(), w["w3"]["w"].t()
+        products = {"h @ w12 + b": lambda: linear(h, w["w12"]),
+                    "s @ w3 + b": lambda: linear(s_, w["w3"]),
+                    "dY @ w3^T": lambda: torch.matmul(dy, w3t),
+                    "d[u|g] @ w12^T": lambda: torch.matmul(dgu, w12t)}
+        for name, fn in products.items():
+            out, _, table = profiled(fn)
+            torch.cuda.synchronize()
+            ms = median_ms(fn)
+            kernel = table.splitlines()[0].split("%  ", 1)[1] if table \
+                else "not traced"
+            r = {"ms": ms, "tflops": flops[name] / ms / 1e9,
+                 "kernel": kernel[:80]}
+            results[(name, fp)] = r
+            log(f"MLP {name} at F {f} stored at {fp}, [{rows}, ...] bf16: "
+                f"{ms:.4f} ms, {r['tflops']:.1f} TFLOP/s, {r['kernel']}")
+            # the true columns only: u's and g's halves, or s's F
+            if name == "h @ w12 + b":
+                out = torch.cat([out[:, :f], out[:, fp:fp + f]], -1)
+            elif name == "dY @ w3^T":
+                out = out[:, :f]
+            if name in outs:
+                rel, floor = MLP_BOUND
+                want = outs[name].float()
+                err = (out.float() - want).abs()
+                if (err > rel * want.abs() + floor * want.abs().max()).any():
+                    raise AssertionError(
+                        f"MLP {name}: the padded product's true columns "
+                        f"differ from the unpadded one's by "
+                        f"{err.max().item():.3e}")
+                results[(name, fp)]["max_abs_err"] = err.max().item()
+            else:
+                outs[name] = out
+            del out
+        del w, w12t, w3t, s_, dgu, products
+        torch.cuda.empty_cache()
+    del h, dy, s0, dgu0, outs
+    torch.cuda.empty_cache()
+    # LN_ffn: 2736-wide rows normalised over 2730, the padding filled
+    x, scale, bias, dy = ln_inputs(torch.Generator("cuda").manual_seed(
+        SEED + 43), rows, MLP_FP, torch.bfloat16)
+    scale[f:] = 0
+    bias[f:] = 0
+    errs, out, grad, plain, leaf = ln_against_plain(
+        tln, x, scale, bias, dy, 1e-6, "centered", width=f)
+    if out[:, f:].any() or grad[:, f:].any():
+        raise AssertionError("layernorm at the logical width wrote a "
+                             "nonzero past it")
+    del out, grad, plain, leaf
+    _, mu, rstd = tln.layer_norm_cuda(x, scale, bias, 1e-6, True, width=f)
+    narrow, dy_n = x[:, :f].contiguous(), dy[:, :f].contiguous()
+    _, mu_n, rstd_n = tln.layer_norm_cuda(narrow, scale[:f], bias[:f], 1e-6,
+                                          True)
+    ln = {"fwd_max_abs_err": errs["fwd"][0], "bwd_max_abs_err": errs["bwd"][0],
+          "fwd_differing": errs["fwd"][1], "bwd_differing": errs["bwd"][1],
+          "ms": median_ms(lambda: tln.layer_norm_cuda(x, scale, bias, 1e-6,
+                                                      width=f)),
+          "bwd_ms": median_ms(lambda: tln.layer_norm_grad_cuda(
+              x, dy, scale, mu, rstd, width=f)),
+          "unmasked_ms": median_ms(lambda: tln.layer_norm_cuda(
+              narrow, scale[:f], bias[:f], 1e-6)),
+          "unmasked_bwd_ms": median_ms(lambda: tln.layer_norm_grad_cuda(
+              narrow, dy_n, scale[:f], mu_n, rstd_n)),
+          "bound_ms": rows * 2 * f * 2 / 3.35e9,
+          "bwd_bound_ms": rows * 3 * f * 2 / 3.35e9, "bound_by": "bytes"}
+    log(f"layernorm [{rows}, {MLP_FP}] bf16 at width {f}: " + ", ".join(
+        f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in ln.items()))
+    results["layer_norm"] = ln
     return results
 
 
@@ -3354,7 +3499,8 @@ def main() -> int:
     for phase, run in ((37, phase_bench), (38, phase_bench_tools),
                        (39, lambda: phase_bench_ranks(lib.parent)),
                        (40, lambda: phase_swiglu(tsw)),
-                       (41, lambda: phase_layer_norm(tln))):
+                       (41, lambda: phase_layer_norm(tln)),
+                       (42, lambda: phase_mlp_stride(tln))):
         start = time.perf_counter()
         seconds[phase] = (run(), time.perf_counter() - start)
         log(f"phase {phase} took {seconds[phase][1]:.1f} s")
@@ -3413,6 +3559,7 @@ def main() -> int:
     k6_fc1 = k6[K6_FC1]
     swiglu = seconds[40][0]
     ln_results = seconds[41][0]
+    mlp = seconds[42][0]
     ln_by_path = {name: r["layer_norm"] for name, r in paths.items()
                   if "layer_norm" in r}
     log(f"layernorm launches over each path's run of 16 images: "
@@ -3484,7 +3631,10 @@ def main() -> int:
          "replaces": "none (EVA02's gated MLP)", **swiglu[SWIGLU_STEP],
          "max_abs_err": max(r["max_abs_err"] for r in swiglu.values()),
          "shapes": {f"[{m}, 2 x {f}] {d}": r
-                    for (m, f, d), r in swiglu.items()}},
+                    for (m, f, d), r in swiglu.items()},
+         "mlp_products": {f"{name} at {fp}": r
+                          for key, r in mlp.items() if key != "layer_norm"
+                          for name, fp in (key,)}},
         {"name": "layer_norm", "route": "cuda",
          "source": "ttl_tpu_torch/csrc/layer_norm.cu",
          "replaces": "none (XLA's fused layernorm)",
@@ -3492,7 +3642,9 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in ln_results.values()),
          "launches_by_path": ln_by_path,
          "shapes": {f"[{m}, {k}] {d}": r
-                    for (m, k, d), r in ln_results.items()}},
+                    for (m, k, d), r in ln_results.items()},
+         "strided": {f"[{MLP_ROWS}, {MLP_FP}] bf16 at width {MLP_F}":
+                     mlp["layer_norm"]}},
     ]
     print(json.dumps({"kernels": kernels}, default=str))
     print(smi)

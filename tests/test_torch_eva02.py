@@ -21,6 +21,12 @@ EVA02-CLIP (`benchmark/reference/arch/eva02.py`) on seeded weights, at the
   `swiglu.launches` (a forward or a backward); folded calls and attention
   calls at the tower's depth.
 - The modes this tower refuses raise ValueError naming them.
+- The card's layout (`card_layout`): the MLP padded from 85 to 88 columns
+  as [W1 | 0 | W2 | 0], w3's rows and LN_ffn's scale and bias with zeros,
+  every other leaf as it was; an aligned width left alone; the padded tower
+  gives the unpadded one's features and LoRA gradients within f32
+  rounding, on the CPU and (`cuda`-marked) on the card, where
+  `init_clip_params` lays the tower out so.
 - CLIP: the text tower's activation is a switch whose default changes
   nothing; the tiny CLIP logits are the values the port gave before the
   EVA02 tower was added, bit for bit; the full-depth launch counts are as
@@ -30,6 +36,7 @@ EVA02-CLIP (`benchmark/reference/arch/eva02.py`) on seeded weights, at the
   TTL_LN_STATS, are the values the port gave while each tower had its own
   skeleton, bit for bit.
 """
+import dataclasses
 import hashlib
 import math
 
@@ -203,6 +210,82 @@ def test_ttl_step_matches_the_reference(tiny):
                                atol=1e-4)
     torch.testing.assert_close(res.logits, adapted, rtol=1e-4, atol=1e-4)
     assert (adapted - zero_shot).abs().max() > 1e-2   # the step moved them
+
+
+# ----------------------------------------------------------- card layout
+
+def test_card_layout_pads_the_mlp_with_zeros(tiny):
+    _, clip_cfg, params, _, _, _, _ = tiny
+    vision = params["vision"]
+    f = clip_cfg.vision.mlp_hidden
+    assert (f, teva.mlp_stride(f)) == (85, 88)
+    padded = teva.card_layout(vision, clip_cfg.vision)
+    layers, new = vision["layers"], padded["layers"]
+    for name in ("w", "b"):
+        w1, w2 = layers["w12"][name].split(f, dim=-1)
+        p1, z1, p2, z2 = new["w12"][name].split([f, 3, f, 3], dim=-1)
+        assert torch.equal(p1, w1) and torch.equal(p2, w2)
+        assert not z1.any() and not z2.any()
+    assert new["w3"]["w"].shape == (4, 88, 32)
+    assert torch.equal(new["w3"]["w"][:, :f], layers["w3"]["w"])
+    assert not new["w3"]["w"][:, f:].any()
+    assert new["w3"]["b"] is layers["w3"]["b"]
+    for name in ("scale", "bias"):
+        assert new["ln_ffn"][name].shape == (4, 88)
+        assert torch.equal(new["ln_ffn"][name][:, :f],
+                           layers["ln_ffn"][name])
+        assert not new["ln_ffn"][name][:, f:].any()
+    for name in set(layers) - {"w12", "w3", "ln_ffn"}:
+        assert new[name] is layers[name], name
+    assert all(padded[k] is vision[k] for k in vision if k != "layers")
+
+
+@pytest.mark.parametrize("f", [88, 2736])
+def test_card_layout_leaves_an_aligned_width_as_it_is(f):
+    vcfg = teva.EVA02VisionConfig(hidden=32, layers=2, heads=2, proj_dim=16,
+                                  patch=16, image_size=64, mlp_hidden=f,
+                                  rope_pretrain_grid=2)
+    vision = teva.init_vision(torch.Generator().manual_seed(1), vcfg)
+    assert teva.mlp_stride(f) == f
+    assert teva.card_layout(vision, vcfg) is vision
+
+
+def _features_and_lora_grads(vision, clip_cfg, images, adapters):
+    """f32 features of the adapted tower (window 1-3) and the gradient of
+    their squares' sum with respect to every adapter leaf."""
+    leaves_ = []
+    tclip.tree_map(leaves_.append, adapters)
+    feats = tclip.encode_image(vision, images, clip_cfg.vision,
+                               compute_dtype=torch.float32,
+                               adapters=adapters, adapter_window=(1, 3))
+    return feats, torch.autograd.grad(feats.square().sum(), leaves_)
+
+
+def _moved_adapters(adapters0, device="cpu"):
+    """Adapters moved off their initial values (B starts at zero), so that
+    every leaf takes a gradient."""
+    g = torch.Generator().manual_seed(17)
+    return tclip.tree_map(
+        lambda t: (t + 0.05 * torch.randn(t.shape, generator=g)).to(
+            device).requires_grad_(True), adapters0)
+
+
+def test_padded_tower_gives_the_unpadded_features_and_lora_gradients(tiny):
+    """On the CPU, the padded layout through the same code: the products
+    sum the same terms and zeros, so features and gradients agree to f32
+    rounding."""
+    _, clip_cfg, params, _, views, _, adapters0 = tiny
+    adapters = _moved_adapters(adapters0)
+    padded = teva.card_layout(params["vision"], clip_cfg.vision)
+    want, want_grads = _features_and_lora_grads(params["vision"], clip_cfg,
+                                                views[0], adapters)
+    got, grads = _features_and_lora_grads(padded, clip_cfg, views[0],
+                                          adapters)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    for a, b in zip(grads, want_grads):
+        assert b.abs().max() > 0
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * b.abs().max().item())
 
 
 # ------------------------------------------------------------------ RoPE
@@ -542,3 +625,56 @@ def test_swiglu_kernels_against_the_plain_versions(card, rows, f, dtype):
         got, want = got.float(), want.float()
         limit = rel * want.abs() + floor * want.abs().max()
         assert ((got - want).abs() <= limit).all()
+
+
+@pytest.mark.cuda
+def test_card_layout_on_the_card(card):
+    """`init_clip_params` on the card lays the tower out padded and the
+    CPU's draw stays unpadded. At an even SwiGLU width (86 -> 88), which
+    the layernorm kernels take unpadded too, the card's padded tower gives
+    its unpadded tower's f32 features and LoRA gradients within f32
+    rounding, LN_ffn's forwards and backwards counted as strided launches;
+    at `eva02-tiny`'s odd 85, which only the padded layout runs on the
+    card, they are the CPU's within the reference tests' 1e-4."""
+    from ttl_tpu_torch.ops import layer_norm as tln
+    cfg = ttl_config()
+    even = tclip.CLIPConfig(
+        vision=dataclasses.replace(EVA02_TINY.vision, mlp_hidden=86),
+        text=EVA02_TINY.text)
+    images = torch.randn(8, 3, 64, 64,
+                         generator=torch.Generator().manual_seed(3))
+    adapters0 = make_adapters0(cfg, EVA02_TINY, "cpu")
+    for clip_cfg, f in ((even, 86), (EVA02_TINY, 85)):
+        on_card = tclip.init_clip_params(
+            clip_cfg, torch.Generator().manual_seed(SEED), device=card)
+        on_host = tclip.init_clip_params(
+            clip_cfg, torch.Generator().manual_seed(SEED), device="cpu")
+        assert on_card["vision"]["layers"]["w12"]["w"].shape == (4, 32, 176)
+        assert on_host["vision"]["layers"]["w12"]["w"].shape == (4, 32, 2 * f)
+        padded = tclip.tree_map(lambda t: t.to(card), teva.card_layout(
+            on_host["vision"], clip_cfg.vision))
+        for (path, a), (_, b) in zip(leaves(on_card["vision"]),
+                                     leaves(padded)):
+            assert torch.equal(a, b), path
+        before = tln.layer_norm.strided_launches
+        got, grads = _features_and_lora_grads(
+            on_card["vision"], clip_cfg, images.to(card),
+            _moved_adapters(adapters0, card))
+        # LN_ffn of the prefix's layer forward; of the window's 3 forward,
+        # again in the recompute, and backward
+        assert tln.layer_norm.strided_launches - before == 1 + 3 * 3
+        if f == 86:
+            rtol, atol, gtol, where = 1e-5, 1e-6, 1e-5, card
+            vision = tclip.tree_map(lambda t: t.to(card), on_host["vision"])
+        else:
+            rtol, atol, gtol, where = 1e-4, 1e-4, 1e-4, "cpu"
+            vision = on_host["vision"]
+        want, want_grads = _features_and_lora_grads(
+            vision, clip_cfg, images.to(where),
+            _moved_adapters(adapters0, where))
+        torch.testing.assert_close(got.cpu(), want.cpu(), rtol=rtol,
+                                   atol=atol)
+        for a, b in zip(grads, want_grads):
+            torch.testing.assert_close(
+                a.cpu(), b.cpu(), rtol=rtol,
+                atol=gtol * b.abs().max().item())

@@ -13,10 +13,18 @@ the dispatch of `models.clip.layer_norm`.
 - The launches of one TTL step at ViT-B/16's, ViT-L/14's and EVA02-L/14's
   depths, with the CPU's plain calls sent through the op to count them, and
   that step's logits against the plain version's.
+- A logical width below the row length (EVA02's LN_ffn over 2730 of 2736
+  stored columns on the card): the plain forward is the old body on the
+  first n columns bit for bit and 0 past them, the plain dx the plain dx of
+  those columns and 0 past them, whatever the padding holds; n equal to the
+  row is the call without it; `layer_norm.strided_launches` counts only
+  the calls below the row, 36 a padded EVA02 step and none on CLIP's.
 - On the card (`cuda`-marked): the kernels against the plain version at the
   towers' widths (512, 768, 1024, 2730) and row counts that fill no whole
   block, dx against autograd through the plain version, strided inputs,
-  TTL_LN_STATS=ex2, and the calls the kernels refuse.
+  TTL_LN_STATS=ex2, and the calls the kernels refuse; the masked kernels
+  at [rows, 2736] with n = 2730 and on the warp route with an odd n, and
+  n equal to the row giving the unmasked kernels' bits.
 """
 import pytest
 import torch
@@ -148,11 +156,92 @@ def test_launches_and_the_plain_backward_against_autograd(dtype):
     assert tln.layer_norm.launches - before == 2        # two forwards
 
 
-def _step(clip_cfg, dtype):
+# -------------------------------------------------------- logical width
+
+@pytest.mark.parametrize("n", [85, 86])
+@pytest.mark.parametrize("stats", ["centered", "ex2"])
+@pytest.mark.parametrize("dtype", DTYPES.values(), ids=DTYPES.keys())
+def test_logical_width_forward_is_the_old_body_on_its_columns(dtype, stats,
+                                                              n):
+    """The padding holds values (a card layout keeps zeros there; the
+    function must not read them either way)."""
+    x, p, _ = inputs(13, 88, dtype, seed=n)
+    got = tln.layer_norm_plain(x, p["scale"], p["bias"], 1e-6, stats, n)
+    want = old_layer_norm(x[:, :n], {k: t[:n] for k, t in p.items()}, 1e-6,
+                          stats)
+    assert got.shape == x.shape and got.dtype == dtype
+    assert torch.equal(got[:, :n], want) and not got[:, n:].any()
+    assert torch.equal(
+        tln.layer_norm_plain(x, p["scale"], p["bias"], 1e-6, stats, 88),
+        tln.layer_norm_plain(x, p["scale"], p["bias"], 1e-6, stats))
+
+
+@pytest.mark.parametrize("n", [85, 86])
+@pytest.mark.parametrize("dtype", DTYPES.values(), ids=DTYPES.keys())
+def test_logical_width_backward_is_the_plain_dx_of_its_columns(dtype, n):
+    """dx of the logical columns as `layer_norm_grad_plain` gives it for
+    those columns alone (the statistics of those columns), 0 past them;
+    through the op on the CPU a forward and a backward, each counted as a
+    launch and a strided launch; autograd through the old body on the
+    columns within the bound of the full-width test."""
+    rel, floor = (2.0 ** -7, 2.0 ** -16) if dtype == torch.bfloat16 \
+        else (0.0, 1e-5)
+    x, p, dy = inputs(11, 88, dtype, seed=n + 1)
+    x32 = x[:, :n].float()
+    mu = x32.mean(-1)
+    rstd = torch.rsqrt(x32.var(-1, unbiased=False) + 1e-6)
+    got = tln.layer_norm_grad_plain(x, dy, p["scale"], mu, rstd, n)
+    want = tln.layer_norm_grad_plain(x[:, :n], dy[:, :n], p["scale"][:n],
+                                     mu, rstd)
+    assert torch.equal(got[:, :n], want) and not got[:, n:].any()
+    leaf = x.clone().requires_grad_(True)
+    before = tln.layer_norm.launches, tln.layer_norm.strided_launches
+    y = tln.layer_norm(leaf, p["scale"], p["bias"], 1e-6, width=n)
+    (dx,) = torch.autograd.grad(y, leaf, dy)
+    assert (tln.layer_norm.launches - before[0],
+            tln.layer_norm.strided_launches - before[1]) == (2, 2)
+    assert torch.equal(y, tln.layer_norm_plain(x, p["scale"], p["bias"],
+                                               1e-6, width=n))
+    assert not dx[:, n:].any()
+    part = x[:, :n].clone().requires_grad_(True)
+    (ref,) = torch.autograd.grad(
+        old_layer_norm(part, {k: t[:n] for k, t in p.items()}, 1e-6,
+                       "centered"), part, dy[:, :n])
+    d, ref = dx[:, :n].float(), ref.float()
+    assert ((d - ref).abs() <= rel * ref.abs()
+            + floor * ref.abs().max()).all()
+
+
+def test_full_logical_width_is_the_call_without_it():
+    x, p, dy = inputs(9, 64, torch.bfloat16)
+    leaf = x.clone().requires_grad_(True)
+    before = tln.layer_norm.launches, tln.layer_norm.strided_launches
+    outs = []
+    for width in (None, 64):
+        y = tln.layer_norm(leaf, p["scale"], p["bias"], 1e-6, width=width)
+        outs.append((y, *torch.autograd.grad(y, leaf, dy)))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert (tln.layer_norm.launches - before[0],
+            tln.layer_norm.strided_launches - before[1]) == (4, 0)
+
+
+@pytest.mark.parametrize("width", [0, 65])
+def test_logical_width_outside_the_row_raises(width):
+    x, p, _ = inputs(3, 64, torch.float32)
+    with pytest.raises(ValueError, match="logical width"):
+        tln.layer_norm_plain(x, p["scale"], p["bias"], 1e-6, width=width)
+    with pytest.raises(ValueError, match="logical width"):
+        tln.layer_norm(x, p["scale"], p["bias"], 1e-6, width=width)
+
+
+def _step(clip_cfg, dtype, layout=None):
     cfg = TTLConfig(arch="test-tiny", seed=3, resolution=64, sample_batch=2,
                     batch_size=4, compute_dtype=dtype, param_dtype=dtype)
     params = tclip.init_clip_params(clip_cfg, torch.Generator().manual_seed(
         3), device="cpu", param_dtype=getattr(torch, dtype))
+    if layout is not None:
+        params = {**params, "vision": layout(params["vision"],
+                                             clip_cfg.vision)}
     adapters0 = make_adapters0(cfg, clip_cfg, "cpu")
     g = torch.Generator().manual_seed(4)
     classes = F.normalize(torch.randn(5, 16, generator=g), dim=-1)
@@ -186,8 +275,9 @@ def test_launches_of_a_step(arch, layers, launches, monkeypatch):
     clip_cfg = tclip.CLIPConfig(vision=vision, text=text)
     plain = _step(clip_cfg, "float32")
     monkeypatch.setattr(tln, "layer_norm_plain",
-                        lambda x, scale, bias, eps, stats="centered":
-                        tln.layer_norm(x, scale, bias, eps, stats))
+                        lambda x, scale, bias, eps, stats="centered",
+                        width=None:
+                        tln.layer_norm(x, scale, bias, eps, stats, width))
     before = tln.layer_norm.launches
     res = _step(clip_cfg, "float32")
     assert tln.layer_norm.launches - before == launches
@@ -197,6 +287,45 @@ def test_launches_of_a_step(arch, layers, launches, monkeypatch):
     before = tln.layer_norm.launches
     _step(clip_cfg, "bfloat16")
     assert tln.layer_norm.launches - before == launches
+
+
+@pytest.mark.parametrize("arch,layers,padded,strided", [
+    ("clip", 12, False, 0), ("clip", 24, False, 0),
+    ("eva02", 24, False, 0), ("eva02", 24, True, 36)],
+    ids=["vitb16-depth", "vitl14-depth", "eva02l14-depth",
+         "eva02l14-depth-card-layout"])
+def test_strided_launches_of_a_step(arch, layers, padded, strided,
+                                    monkeypatch):
+    """`layer_norm.strided_launches` over one step, the CPU's plain calls
+    sent through the op: LN_ffn's forwards and backwards where the MLP is
+    stored padded (`card_layout`, 85 -> 88 here, as 2730 -> 2736 on the
+    card), as many as SwiGLU's 36 at depth 24 (21 prefix layers, the
+    window's 3 forward, again in the recompute and backward, the two clean
+    passes' 6); none on CLIP or an unpadded EVA02; the padded step's logits
+    those of the unpadded one within f32 rounding."""
+    if arch == "clip":
+        vision = tclip.VisionConfig(hidden=32, layers=layers, heads=2,
+                                    proj_dim=16, patch=16, image_size=64)
+        text = TEST_TINY.text
+    else:
+        vision = teva.EVA02VisionConfig(
+            hidden=32, layers=layers, heads=2, proj_dim=16, patch=16,
+            image_size=64, mlp_hidden=85, rope_pretrain_grid=2)
+        text = EVA02_TINY.text
+    clip_cfg = tclip.CLIPConfig(vision=vision, text=text)
+    layout = teva.card_layout if padded else None
+    monkeypatch.setattr(tln, "layer_norm_plain",
+                        lambda x, scale, bias, eps, stats="centered",
+                        width=None:
+                        tln.layer_norm(x, scale, bias, eps, stats, width))
+    before = tln.layer_norm.strided_launches
+    res = _step(clip_cfg, "float32", layout)
+    assert tln.layer_norm.strided_launches - before == strided
+    if padded:
+        plain = _step(clip_cfg, "float32")
+        for got, want in ((res.logits, plain.logits),
+                          (res.zero_shot_logits, plain.zero_shot_logits)):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 # ------------------------------------------------------------- on the card
@@ -337,3 +466,56 @@ def test_calls_the_kernels_do_not_take_raise_on_the_card(card):
         with pytest.raises(ValueError, match="no gradient for its scale"):
             tclip.layer_norm(x, trained, 1e-5)
     assert tln.layer_norm.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,n,dtype", [
+    (2 * 592 + 1, 2736, 2730, torch.bfloat16),
+    (513, 2736, 2730, torch.float32), (99, 88, 85, torch.bfloat16)],
+    ids=["2736-2730", "f32-2736-2730", "88-85"])
+def test_logical_width_on_the_card(card, rows, k, n, dtype):
+    """The masked kernels (LN_ffn's stored row, and the warp route with an
+    odd n) against the plain version at the same width within FWD_BOUND,
+    dx against autograd through it as the full-width backward's; y and dx
+    exactly 0 past n; the padding, filled, read by neither."""
+    x, p, dy = inputs(rows, k, dtype, card, seed=k + n)
+    leaf = x.clone().requires_grad_(True)
+    want = tln.layer_norm_plain(leaf, p["scale"], p["bias"], 1e-6,
+                                width=n)
+    (want_dx,) = torch.autograd.grad(want, leaf, dy)
+    before = tln.layer_norm.launches, tln.layer_norm.strided_launches
+    got = tclip.layer_norm(leaf, p, 1e-6, n)
+    (got_dx,) = torch.autograd.grad(got, leaf, dy)
+    assert (tln.layer_norm.launches - before[0],
+            tln.layer_norm.strided_launches - before[1]) == (2, 2)
+    assert not got[:, n:].any() and not got_dx[:, n:].any()
+    _within(got, want, *FWD_BOUND[dtype])
+    _within(got_dx, want_dx, *((2.0 ** -7, 2.0 ** -12)
+                               if dtype == torch.bfloat16 else (0.0, 1e-5)))
+    zeroed = x.clone()
+    zeroed[:, n:] = 0
+    y0, mu, rstd = tln.layer_norm_cuda(zeroed, p["scale"], p["bias"], 1e-6,
+                                       True, width=n)
+    assert torch.equal(y0, got)
+    assert torch.equal(tln.layer_norm_grad_cuda(zeroed, dy, p["scale"], mu,
+                                                rstd, width=n), got_dx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,k,dtype", [
+    (2 * 592 + 1, 2730, torch.bfloat16), (4 * 592 + 3, 1024, torch.bfloat16),
+    (131, 2736, torch.float32)], ids=["2730", "1024", "f32-2736"])
+def test_full_logical_width_is_the_unmasked_kernel_on_the_card(card, rows,
+                                                               k, dtype):
+    """n = K runs the unmasked kernels, the calls every CLIP layernorm
+    makes: the bits of the call without a width, forward and dx, and no
+    strided launch."""
+    x, p, dy = inputs(rows, k, dtype, card, seed=k + 3)
+    leaf = x.clone().requires_grad_(True)
+    before = tln.layer_norm.strided_launches
+    outs = []
+    for width in (None, k):
+        y = tclip.layer_norm(leaf, p, 1e-6, width)
+        outs.append((y, *torch.autograd.grad(y, leaf, dy)))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert tln.layer_norm.strided_launches == before

@@ -17,6 +17,15 @@
 // and of its gradient with respect to x, which is the same in both; scale
 // and bias take none on any path.
 //
+// A logical width n <= K: the statistics, the backward's two means and
+// the division by the width run over the first n columns of each row, and
+// y and dx are 0 in the n..K-1 past them, which are never read. EVA02 on
+// the card stores its 2730-wide SwiGLU hidden on a 2736-wide row (16-byte
+// strides for the products around it, models/eva02.py::card_layout) and
+// normalises the 2730. The route is chosen by K, the row length; n < K
+// takes the masked instance of the same route, n = K the unmasked one,
+// which reads no n.
+//
 // It replaces no TPU kernel: the JAX package leaves its layernorms to XLA,
 // which fuses each into one pass. PyTorch runs the plain version as ten
 // elementwise and reduction passes over the row in f32 (about 68 bytes moved
@@ -40,7 +49,8 @@
 // C interface (loaded with ctypes): ttl_layer_norm_fwd and
 // ttl_layer_norm_bwd, on the caller's stream; each returns the cudaError_t
 // of its launch, cudaErrorInvalidValue for an odd K, one past kMaxK
-// (ops/layer_norm.py's MAX_K) or an unknown stats code, and
+// (ops/layer_norm.py's MAX_K), a logical width n outside [1, K] or an
+// unknown stats code, and
 // cudaErrorMisalignedAddress for a row pointer not on a pair boundary.
 
 #include <cuda_bf16.h>
@@ -114,20 +124,23 @@ __device__ __forceinline__ float2 row_sum2(float a, float b, float2* red) {
 
 // kRowThreads threads a row (32: a warp, kThreads: the block), kPer pairs a
 // thread: thread t of a row holds pairs t, t + kRowThreads, ...
-template <typename T, int kRowThreads, int kPer>
+// kMasked: the logical width n < k (see the top); else n is not read
+template <typename T, int kRowThreads, int kPer, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 layer_norm_fwd_kernel(const T* __restrict__ x,
                       const float* __restrict__ scale,
                       const float* __restrict__ bias, T* __restrict__ y,
                       float* __restrict__ mu_out,
                       float* __restrict__ rstd_out, long long rows, int k,
-                      float eps, bool ex2) {
+                      int n, float eps, bool ex2) {
   using P = Pair<T>;
   __shared__ float red[kThreads / 32];
   const long long r = (long long)blockIdx.x * (kThreads / kRowThreads) +
                       threadIdx.x / kRowThreads;
   if (r >= rows) return;  // a warp's row past the end; never a block's
   const int t = threadIdx.x % kRowThreads, half = k / 2;
+  // the pairs that hold a logical column; with an odd n the last holds one
+  const int live = kMasked ? (n + 1) / 2 : half;
   const typename P::V* xr = reinterpret_cast<const typename P::V*>(x) +
                             r * half;
   float2 v[kPer];
@@ -135,18 +148,21 @@ layer_norm_fwd_kernel(const T* __restrict__ x,
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int j = t + i * kRowThreads;
-    v[i] = j < half ? P::load(xr + j) : make_float2(0.f, 0.f);
+    v[i] = j < live ? P::load(xr + j) : make_float2(0.f, 0.f);
+    if (kMasked && 2 * j + 1 >= n) v[i].y = 0.f;
     s += v[i].x + v[i].y;
   }
-  const float kf = (float)k;
+  const float kf = (float)(kMasked ? n : k);
   const float mu = ln_mean(row_sum<kRowThreads>(s, red), kf);
   // the squared deviations from mu, or with ex2 the squares
   const float c = ex2 ? 0.f : mu;
   float q = 0.f;
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
-    if (t + i * kRowThreads < half) {
-      const float d0 = v[i].x - c, d1 = v[i].y - c;
+    const int j = t + i * kRowThreads;
+    if (j < live) {
+      const float d0 = v[i].x - c;
+      const float d1 = kMasked && 2 * j + 1 >= n ? 0.f : v[i].y - c;
       q += d0 * d0 + d1 * d1;
     }
   }
@@ -157,12 +173,16 @@ layer_norm_fwd_kernel(const T* __restrict__ x,
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int j = t + i * kRowThreads;
-    if (j < half)
+    if (j < live)
       yr[j] = P::pack(
           ln_affine(v[i].x, mu, rstd, __ldg(scale + 2 * j),
                     __ldg(bias + 2 * j)),
-          ln_affine(v[i].y, mu, rstd, __ldg(scale + 2 * j + 1),
-                    __ldg(bias + 2 * j + 1)));
+          kMasked && 2 * j + 1 >= n
+              ? 0.f
+              : ln_affine(v[i].y, mu, rstd, __ldg(scale + 2 * j + 1),
+                          __ldg(bias + 2 * j + 1)));
+    else if (kMasked && j < half)
+      yr[j] = P::pack(0.f, 0.f);
   }
   if (mu_out != nullptr && t == 0) {
     mu_out[r] = mu;
@@ -170,19 +190,20 @@ layer_norm_fwd_kernel(const T* __restrict__ x,
   }
 }
 
-template <typename T, int kRowThreads, int kPer>
+template <typename T, int kRowThreads, int kPer, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                       const float* __restrict__ scale,
                       const float* __restrict__ mu_in,
                       const float* __restrict__ rstd_in, T* __restrict__ dx,
-                      long long rows, int k) {
+                      long long rows, int k, int n) {
   using P = Pair<T>;
   __shared__ float2 red[kThreads / 32];
   const long long r = (long long)blockIdx.x * (kThreads / kRowThreads) +
                       threadIdx.x / kRowThreads;
   if (r >= rows) return;
   const int t = threadIdx.x % kRowThreads, half = k / 2;
+  const int live = kMasked ? (n + 1) / 2 : half;
   const typename P::V* xr = reinterpret_cast<const typename P::V*>(x) +
                             r * half;
   const typename P::V* dr = reinterpret_cast<const typename P::V*>(dy) +
@@ -194,7 +215,7 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int j = t + i * kRowThreads;
-    if (j < half) {
+    if (j < live) {
       xh[i] = P::load(xr + j);
       g[i] = P::load(dr + j);
     }
@@ -202,25 +223,30 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int j = t + i * kRowThreads;
-    if (j < half) {
+    if (j < live) {
       xh[i].x = (xh[i].x - mu) * rstd;
       xh[i].y = (xh[i].y - mu) * rstd;
       g[i].x *= __ldg(scale + 2 * j);
       g[i].y *= __ldg(scale + 2 * j + 1);
+      if (kMasked && 2 * j + 1 >= n) xh[i].y = g[i].y = 0.f;
       sg += g[i].x + g[i].y;
       sgx += g[i].x * xh[i].x + g[i].y * xh[i].y;
     }
   }
-  const float kf = (float)k;
+  const float kf = (float)(kMasked ? n : k);
   const float2 sums = row_sum2<kRowThreads>(sg, sgx, red);
   const float mg = __fdiv_rn(sums.x, kf), mgx = __fdiv_rn(sums.y, kf);
   typename P::V* out = reinterpret_cast<typename P::V*>(dx) + r * half;
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int j = t + i * kRowThreads;
-    if (j < half)
+    if (j < live)
       out[j] = P::pack(rstd * (g[i].x - mg - xh[i].x * mgx),
-                       rstd * (g[i].y - mg - xh[i].y * mgx));
+                       kMasked && 2 * j + 1 >= n
+                           ? 0.f
+                           : rstd * (g[i].y - mg - xh[i].y * mgx));
+    else if (kMasked && j < half)
+      out[j] = P::pack(0.f, 0.f);
   }
 }
 
@@ -256,15 +282,22 @@ struct Fwd {
   void* y;
   float *mu, *rstd;
   long long rows;
-  int k;
+  int k, n;
   float eps;
   bool ex2;
   cudaStream_t s;
   template <typename T, int kRowThreads, int kPer>
   void run(unsigned grid) const {
-    layer_norm_fwd_kernel<T, kRowThreads, kPer><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(x), scale, bias, static_cast<T*>(y), mu, rstd,
-        rows, k, eps, ex2);
+    if (n < k)
+      layer_norm_fwd_kernel<T, kRowThreads, kPer, true>
+          <<<grid, kThreads, 0, s>>>(static_cast<const T*>(x), scale, bias,
+                                     static_cast<T*>(y), mu, rstd, rows, k,
+                                     n, eps, ex2);
+    else
+      layer_norm_fwd_kernel<T, kRowThreads, kPer, false>
+          <<<grid, kThreads, 0, s>>>(static_cast<const T*>(x), scale, bias,
+                                     static_cast<T*>(y), mu, rstd, rows, k,
+                                     n, eps, ex2);
   }
 };
 
@@ -273,20 +306,28 @@ struct Bwd {
   const float *scale, *mu, *rstd;
   void* dx;
   long long rows;
-  int k;
+  int k, n;
   cudaStream_t s;
   template <typename T, int kRowThreads, int kPer>
   void run(unsigned grid) const {
-    layer_norm_bwd_kernel<T, kRowThreads, kPer><<<grid, kThreads, 0, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(dy), scale, mu, rstd,
-        static_cast<T*>(dx), rows, k);
+    if (n < k)
+      layer_norm_bwd_kernel<T, kRowThreads, kPer, true>
+          <<<grid, kThreads, 0, s>>>(static_cast<const T*>(x),
+                                     static_cast<const T*>(dy), scale, mu,
+                                     rstd, static_cast<T*>(dx), rows, k, n);
+    else
+      layer_norm_bwd_kernel<T, kRowThreads, kPer, false>
+          <<<grid, kThreads, 0, s>>>(static_cast<const T*>(x),
+                                     static_cast<const T*>(dy), scale, mu,
+                                     rstd, static_cast<T*>(dx), rows, k, n);
   }
 };
 
 // 0 where the call fits the kernels, else the error to return
-int refuse(int k, int dtype, const void* a, const void* b, const void* c,
-           const void* d) {
-  if (k < 2 || k % 2 || k > kMaxK || (dtype != 0 && dtype != 1))
+int refuse(int k, int n, int dtype, const void* a, const void* b,
+           const void* c, const void* d) {
+  if (k < 2 || k % 2 || k > kMaxK || n < 1 || n > k ||
+      (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t pair = dtype == 1 ? 4 : 8;
   const size_t any = (size_t)a | (size_t)b | (size_t)c | (size_t)d;
@@ -297,29 +338,32 @@ int refuse(int k, int dtype, const void* a, const void* b, const void* c,
 
 extern "C" {
 
-// x [rows, k] -> y [rows, k] (dtype 0 f32, 1 bf16); scale, bias [k] f32; mu
+// x [rows, k] -> y [rows, k] (dtype 0 f32, 1 bf16), normalised over the
+// first n <= k columns of each row and 0 past them; scale, bias [k] f32; mu
 // and rstd [rows] f32, or both null; stats 0 the centered variance, 1
 // E[x^2] - mu^2
 int ttl_layer_norm_fwd(const void* x, const float* scale, const float* bias,
                        void* y, float* mu, float* rstd, int dtype,
-                       long long rows, int k, float eps, int stats,
+                       long long rows, int k, int n, float eps, int stats,
                        void* stream) {
-  if (const int rc = refuse(k, dtype, x, y, x, y)) return rc;
+  if (const int rc = refuse(k, n, dtype, x, y, x, y)) return rc;
   if (stats != 0 && stats != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
-  const Fwd f{x, scale, bias, y, mu, rstd, rows, k, eps, stats == 1,
+  const Fwd f{x, scale, bias, y, mu, rstd, rows, k, n, eps, stats == 1,
               static_cast<cudaStream_t>(stream)};
   return dtype == 1 ? route<__nv_bfloat16>(rows, k, f)
                     : route<float>(rows, k, f);
 }
 
-// x, dy [rows, k] with the forward's mu, rstd [rows] -> dx [rows, k]
+// x, dy [rows, k] with the forward's mu, rstd [rows] -> dx [rows, k], over
+// the first n <= k columns and 0 past them
 int ttl_layer_norm_bwd(const void* x, const void* dy, const float* scale,
                        const float* mu, const float* rstd, void* dx,
-                       int dtype, long long rows, int k, void* stream) {
-  if (const int rc = refuse(k, dtype, x, dy, dx, x)) return rc;
+                       int dtype, long long rows, int k, int n,
+                       void* stream) {
+  if (const int rc = refuse(k, n, dtype, x, dy, dx, x)) return rc;
   if (rows == 0) return 0;
-  const Bwd b{x, dy, scale, mu, rstd, dx, rows, k,
+  const Bwd b{x, dy, scale, mu, rstd, dx, rows, k, n,
               static_cast<cudaStream_t>(stream)};
   return dtype == 1 ? route<__nv_bfloat16>(rows, k, b)
                     : route<float>(rows, k, b);

@@ -160,17 +160,20 @@ def lora_compute_mode() -> str:
     return env_choice("TTL_LORA_COMPUTE", ("mixed", "f32"))
 
 
-def layer_norm(x: torch.Tensor, p: Params, eps: float) -> torch.Tensor:
+def layer_norm(x: torch.Tensor, p: Params, eps: float,
+               width: Optional[int] = None) -> torch.Tensor:
     """Layernorm with f32 statistics, output in x's dtype. The variance is
     the centered mean((x - mu)^2), or with TTL_LN_STATS=ex2 E[x^2] - mu^2
-    floored at 0. A CUDA tensor runs the hand-written kernels, forward and
-    dx backward (`ops.layer_norm.layer_norm`, which raises on a dtype or
-    width they do not take and on a scale or bias that needs a gradient);
-    a CPU tensor the plain version (`layer_norm_plain`)."""
+    floored at 0. `width`: normalise the first `width` columns of a padded
+    row, 0 past them (`ops/layer_norm.py`). A CUDA tensor runs the
+    hand-written kernels, forward and dx backward (`ops.layer_norm.
+    layer_norm`, which raises on a dtype or width they do not take and on a
+    scale or bias that needs a gradient); a CPU tensor the plain version
+    (`layer_norm_plain`)."""
     stats = ln_stats_mode()
     if x.is_cuda:
-        return tln.layer_norm(x, p["scale"], p["bias"], eps, stats)
-    return tln.layer_norm_plain(x, p["scale"], p["bias"], eps, stats)
+        return tln.layer_norm(x, p["scale"], p["bias"], eps, stats, width)
+    return tln.layer_norm_plain(x, p["scale"], p["bias"], eps, stats, width)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -422,6 +425,9 @@ class ViTTower(NamedTuple):
     int8: bool
     # a checkpoint converter reads it (`models/convert.py`)
     converter: bool
+    # (host weights, cfg) -> the weights as a CUDA device holds them, where
+    # they differ (EVA02's padded MLP, `models/eva02.py::card_layout`)
+    card_layout: Optional[Callable] = None
 
 
 def patch_tokens(p: Params, images: torch.Tensor, cfg: VisionConfig,
@@ -646,13 +652,18 @@ def init_clip_params(cfg: CLIPConfig, gen: torch.Generator, *,
     from `gen` on the host: for runs that have no checkpoint. Layernorm
     parameters and logit_scale stay f32, every other leaf is param_dtype;
     a ResNet tower keeps its batchnorms and attention pool in f32
-    (`init_resnet_params`); a ViT tower is drawn by its `ViTTower.init`."""
+    (`init_resnet_params`); a ViT tower is drawn by its `ViTTower.init`,
+    and laid out on a CUDA device by its `card_layout` where it has one."""
     v, t = cfg.vision, cfg.text
     if isinstance(v, ResNetVisionConfig):
         vision = init_resnet_params(v, gen, device=device,
                                     param_dtype=param_dtype)
     else:
-        vision = _placed(TOWERS[v.tower].init(gen, v), device, param_dtype)
+        tower = TOWERS[v.tower]
+        vision = tower.init(gen, v)
+        if tower.card_layout and torch.device(device).type == "cuda":
+            vision = tower.card_layout(vision, v)
+        vision = _placed(vision, device, param_dtype)
     text = {
         "token_embed": _normal(gen, (t.vocab, t.hidden), 0.02),
         "pos_embed": _normal(gen, (t.ctx, t.hidden), 0.01),

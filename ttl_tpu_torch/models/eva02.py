@@ -14,12 +14,27 @@ x0 = [cls ; patches W_patch + b_patch] + pos (no ln_pre); each layer is
 with no layer scale and no drop path, and the features are
 LN_post(x)[:, 0] W_head + b_head, in f32. Every layernorm has the config's
 `ln_eps` (1e-6); LN_ffn's statistics are over the true hidden width
-`mlp_hidden` (2730 at L/14), which nothing pads.
+F = `mlp_hidden` (2730 at L/14), also where the card stores it padded.
 
 Layout: a layer stores the fused `qkv` ([D, 3D], its bias [3D] zero in k's
 third) and `w12` ([D, 2F]: W1's columns, then W2's), `o`, `w3` and the four
 layernorms `ln1`, `ln_attn`, `ln2`, `ln_ffn`; layers are stacked on a
 leading axis as in `models/clip.py`.
+
+On a CUDA device the MLP is stored at Fp, F rounded up to a multiple of
+MLP_ALIGN = 8 columns (2730 -> 2736), so that the rows of the hidden s,
+of [u | g] and of the weights around them start on 16-byte boundaries in
+bf16: cuBLAS runs such products on Hopper's kernels, and at 2730 (rows of
+5460 bytes) on Ampere's 2-element-aligned ones. `card_layout` pads the host
+tree once, where `init_clip_params` places it on the card (the row's
+`ViTTower.card_layout`): `w12` [D, 2Fp] is [W1 | 0 | W2 | 0] and its bias
+[b1 | 0 | b2 | 0], `w3` [Fp, D] has zero rows past F, `ln_ffn`'s scale and
+bias [Fp] zeros past F. The padded columns carry exact zeros through the
+block: u = g = 0 there, so SwiGLU gives SiLU(0) * 0 = 0, LN_ffn normalises
+the first F columns alone (`layer_norm`'s logical width) and writes 0 past
+them, and w3's zero rows drop them; backward, LN_ffn's dx is 0 past F, so
+du = dg = 0 there. An F already on the stride is left as it is, and the CPU
+keeps the unpadded layout.
 
 Numerics are the CLIP towers' (`models/clip.py`): products in the compute
 dtype with the bias added in that dtype (`linear`), layernorm statistics in
@@ -38,8 +53,9 @@ statistics), LN1 -> qkv and LN_attn -> o each run as one `ln_matmul` call
 with the "linear" epilogue (K6 on the card, K = 1024, N = 3072 and 1024);
 LN2 -> w12 is `layer_norm` and one product, then the SwiGLU kernel; LN_ffn
 and w3 stay `layer_norm` and `linear` (K6 takes K and N in multiples of 16
-and holds its K-wide row tile in shared memory; 2730 is neither). On the
-card each `layer_norm` is the layernorm kernel (`ops/layer_norm.py`). The
+and holds its K-wide row tile in shared memory; neither 2730 nor 2736 is
+one). On the card each `layer_norm` is the layernorm kernel
+(`ops/layer_norm.py`). The
 adapted window, the clean-view passes and any layer a gradient reaches run
 the same layer unfolded, which on the CPU is the folded one bit for bit.
 The row asks for the adapted layers to be recomputed in the backward
@@ -55,6 +71,7 @@ import dataclasses
 from typing import ClassVar, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.attention import attention
 from ..ops.ln_matmul import ln_matmul
@@ -76,6 +93,38 @@ class EVA02VisionConfig(VisionConfig):
     rope_theta: float = 10000.0
     ln_eps: float = 1e-6
     tower: ClassVar[str] = "eva02"
+
+
+# the MLP's stored width on the card is a multiple of this many columns: 16
+# bytes of bf16, the narrowest dtype the tower computes in
+MLP_ALIGN = 8
+
+
+def mlp_stride(f: int) -> int:
+    """The stored width of an F-wide SwiGLU hidden on the card."""
+    return -(-f // MLP_ALIGN) * MLP_ALIGN
+
+
+def card_layout(vision: Params, cfg: EVA02VisionConfig) -> Params:
+    """The host tree with its MLP padded from F to `mlp_stride(F)` columns
+    with zeros (see the module): a new tree, the rest of its leaves shared;
+    `vision` itself where F is already on the stride."""
+    f = cfg.mlp_hidden
+    pad = mlp_stride(f) - f
+    if pad == 0:
+        return vision
+    layers = vision["layers"]
+
+    def halves(t):        # [..., 2F] -> [..., 2Fp]: [a | 0 | b | 0]
+        a, b = t.split(f, dim=-1)
+        return torch.cat([F.pad(a, (0, pad)), F.pad(b, (0, pad))], dim=-1)
+
+    mlp = {"w12": {n: halves(t) for n, t in layers["w12"].items()},
+           "w3": {"w": F.pad(layers["w3"]["w"], (0, 0, 0, pad)),
+                  "b": layers["w3"]["b"]},
+           "ln_ffn": {n: F.pad(t, (0, pad))
+                      for n, t in layers["ln_ffn"].items()}}
+    return {**vision, "layers": {**layers, **mlp}}
 
 
 def _rope_qk(q: torch.Tensor, k: torch.Tensor,
@@ -123,7 +172,8 @@ def eva_layer(p: Params, x: torch.Tensor, cfg: EVA02VisionConfig, *,
         out = linear(layer_norm(a, p["ln_attn"], eps), p["o"])
     x = x + out
     s = swiglu(linear(layer_norm(x, p["ln2"], eps), p["w12"]))
-    return x + linear(layer_norm(s, p["ln_ffn"], eps), p["w3"])
+    return x + linear(layer_norm(s, p["ln_ffn"], eps, cfg.mlp_hidden),
+                      p["w3"])
 
 
 def _embed(p: Params, images: torch.Tensor, cfg: EVA02VisionConfig,
@@ -183,4 +233,4 @@ def init_vision(gen: torch.Generator, v: EVA02VisionConfig) -> Params:
 # recomputed in the backward a step peaks at 19.8 GB on an H100.
 TOWERS["eva02"] = ViTTower(embed=_embed, block=eva_layer, head=_head,
                            init=init_vision, remat_window=True, int8=False,
-                           converter=False)
+                           converter=False, card_layout=card_layout)

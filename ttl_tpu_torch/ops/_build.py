@@ -158,9 +158,10 @@ def library() -> ctypes.CDLL:
     lib.ttl_swiglu_fwd.restype = i
     lib.ttl_swiglu_bwd.argtypes = [p, p, p, i, ll, i, p]
     lib.ttl_swiglu_bwd.restype = i
-    lib.ttl_layer_norm_fwd.argtypes = [p, p, p, p, p, p, i, ll, i, f, i, p]
+    lib.ttl_layer_norm_fwd.argtypes = [p, p, p, p, p, p, i, ll, i, i, f, i,
+                                        p]
     lib.ttl_layer_norm_fwd.restype = i
-    lib.ttl_layer_norm_bwd.argtypes = [p, p, p, p, p, p, i, ll, i, p]
+    lib.ttl_layer_norm_bwd.argtypes = [p, p, p, p, p, p, i, ll, i, i, p]
     lib.ttl_layer_norm_bwd.restype = i
     lib.ttl_cuda_error_string.argtypes = [i]
     lib.ttl_cuda_error_string.restype = ctypes.c_char_p

@@ -18,6 +18,13 @@ in f32 and rounded once. Scale and bias take no gradient on any path of the
 package (TTL trains LoRA adapters, TPT and CoCoOp the prompt's context), so
 none is computed.
 
+`width`, a logical width n <= K where the row holds padding: every
+statistic, mean and division above runs over x[..., :n] (scale and bias
+[K], their first n read), and y and dx are 0 in the columns past n. EVA02's
+LN_ffn on the card normalises 2730 columns of a 2736-wide row
+(`models/eva02.py::card_layout`). n = K (or `width` None) takes the
+full-width code: on the card the kernels' unmasked instances.
+
 `layer_norm_plain` is the plain version, the body `models.clip.layer_norm`
 has always run and still runs on the CPU; `layer_norm_grad_plain` is the
 gradient's. `layer_norm` runs them on a CPU tensor, and on a CUDA tensor
@@ -26,11 +33,14 @@ to 4096, one pass each way); anything the kernels do not take raises. It
 is an autograd function wherever a gradient can flow: it keeps x (in its
 own dtype), mu and rstd ([M] f32 each) for the backward, and the scale it
 was given. `layer_norm.launches` grows by one at each forward and each
-backward, on any device (on the card, one kernel launch each).
+backward, on any device (on the card, one kernel launch each), and
+`layer_norm.strided_launches` by one at each of those whose logical width
+is below its row length.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -39,9 +49,25 @@ _STATS_CODES = {"centered": 0, "ex2": 1}
 MAX_K = 4096  # csrc/layer_norm.cu's kMaxK
 
 
+def _logical(x: torch.Tensor, width) -> int:
+    """The logical width of x's rows: `width`, or the row length where it
+    is None."""
+    k = x.shape[-1]
+    if width is None:
+        return k
+    if not 1 <= width <= k:
+        raise ValueError(f"layer_norm: the logical width must lie in "
+                         f"[1, {k}], got {width}")
+    return int(width)
+
+
 def _plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-           eps: float, stats: str = "centered"):
+           eps: float, stats: str = "centered", width=None):
     """(y, mu, rstd), mu and rstd [..., 1] f32."""
+    n = _logical(x, width)
+    if n < x.shape[-1]:
+        y, mu, rstd = _plain(x[..., :n], scale[:n], bias[:n], eps, stats)
+        return F.pad(y, (0, x.shape[-1] - n)), mu, rstd
     x32 = x.float()
     mu = x32.mean(dim=-1, keepdim=True)
     if stats == "ex2":
@@ -56,18 +82,24 @@ def _plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, eps: float,
-                     stats: str = "centered") -> torch.Tensor:
+                     stats: str = "centered", width=None) -> torch.Tensor:
     """Layernorm with f32 statistics, output in x's dtype; the variance is
     the centered mean((x - mu)^2), or with stats="ex2" E[x^2] - mu^2
-    floored at 0."""
-    return _plain(x, scale, bias, eps, stats)[0]
+    floored at 0; over the first `width` columns, 0 past them."""
+    return _plain(x, scale, bias, eps, stats, width)[0]
 
 
 def layer_norm_grad_plain(x: torch.Tensor, dy: torch.Tensor,
                           scale: torch.Tensor, mu: torch.Tensor,
-                          rstd: torch.Tensor) -> torch.Tensor:
+                          rstd: torch.Tensor, width=None) -> torch.Tensor:
     """dx in f32, rounded once to x's dtype; mu and rstd as the forward's
-    (any shape that broadcasts over x's rows)."""
+    (any shape that broadcasts over x's rows); over the first `width`
+    columns, 0 past them."""
+    n = _logical(x, width)
+    if n < x.shape[-1]:
+        dx = layer_norm_grad_plain(x[..., :n], dy[..., :n], scale[:n], mu,
+                                   rstd)
+        return F.pad(dx, (0, x.shape[-1] - n))
     x32 = x.float()
     k = x.shape[-1]
     mu = mu.reshape(*x.shape[:-1], 1)
@@ -105,10 +137,11 @@ def _check(x: torch.Tensor) -> None:
 
 def layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     eps: float, with_stats: bool = False,
-                    stats: str = "centered"):
+                    stats: str = "centered", width=None):
     """Launch the forward kernel on the current stream: (y like x, and mu,
     rstd [M] f32 where `with_stats`, else None, None)."""
     _check(x)
+    n = _logical(x, width)
     if stats not in _STATS_CODES:
         raise ValueError(f"layer_norm: stats must be one of "
                          f"{tuple(_STATS_CODES)}, got {stats!r}")
@@ -124,17 +157,19 @@ def layer_norm_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         rows.data_ptr(), sc.data_ptr(), bi.data_ptr(), y.data_ptr(),
         None if mu is None else mu.data_ptr(),
         None if rstd is None else rstd.data_ptr(), _DTYPE_CODES[x.dtype],
-        m, k, float(eps), _STATS_CODES[stats],
+        m, k, n, float(eps), _STATS_CODES[stats],
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, f"layer_norm forward at M={m}, K={k}, {x.dtype}")
+    _build.check(rc, f"layer_norm forward at M={m}, K={k}, n={n}, "
+                     f"{x.dtype}")
     return y.view(x.shape), mu, rstd
 
 
 def layer_norm_grad_cuda(x: torch.Tensor, dy: torch.Tensor,
                          scale: torch.Tensor, mu: torch.Tensor,
-                         rstd: torch.Tensor) -> torch.Tensor:
+                         rstd: torch.Tensor, width=None) -> torch.Tensor:
     """Launch the backward kernel on the current stream: dx like x."""
     _check(x)
+    n = _logical(x, width)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"layer_norm: dy {dy.dtype} {tuple(dy.shape)} does "
                          f"not match x {x.dtype} {tuple(x.shape)}")
@@ -147,30 +182,37 @@ def layer_norm_grad_cuda(x: torch.Tensor, dy: torch.Tensor,
     dx = torch.empty_like(rows)
     rc = _build.library().ttl_layer_norm_bwd(
         rows.data_ptr(), d.data_ptr(), sc.data_ptr(), mu.data_ptr(),
-        rstd.data_ptr(), dx.data_ptr(), _DTYPE_CODES[x.dtype], m, k,
+        rstd.data_ptr(), dx.data_ptr(), _DTYPE_CODES[x.dtype], m, k, n,
         torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, f"layer_norm backward at M={m}, K={k}, {x.dtype}")
+    _build.check(rc, f"layer_norm backward at M={m}, K={k}, n={n}, "
+                     f"{x.dtype}")
     return dx.view(x.shape)
 
 
-def _forward(x, scale, bias, eps, stats: str, with_stats: bool):
+def _count(x, width) -> None:
+    layer_norm.launches += 1
+    if _logical(x, width) < x.shape[-1]:
+        layer_norm.strided_launches += 1
+
+
+def _forward(x, scale, bias, eps, stats: str, width, with_stats: bool):
     if x.device.type == "cpu":
-        y, mu, rstd = _plain(x, scale, bias, eps, stats)
+        y, mu, rstd = _plain(x, scale, bias, eps, stats, width)
         out = y, mu.flatten(), rstd.flatten()
     elif x.device.type == "cuda":
-        out = layer_norm_cuda(x, scale, bias, eps, with_stats, stats)
+        out = layer_norm_cuda(x, scale, bias, eps, with_stats, stats, width)
     else:
         raise ValueError(f"no layer_norm for device {x.device}")
-    layer_norm.launches += 1
+    _count(x, width)
     return out
 
 
-def _backward(x, dy, scale, mu, rstd) -> torch.Tensor:
+def _backward(x, dy, scale, mu, rstd, width) -> torch.Tensor:
     if x.device.type == "cpu":
-        dx = layer_norm_grad_plain(x, dy, scale, mu, rstd)
+        dx = layer_norm_grad_plain(x, dy, scale, mu, rstd, width)
     else:
-        dx = layer_norm_grad_cuda(x, dy, scale, mu, rstd)
-    layer_norm.launches += 1
+        dx = layer_norm_grad_cuda(x, dy, scale, mu, rstd, width)
+    _count(x, width)
     return dx
 
 
@@ -179,28 +221,34 @@ class LayerNorm(torch.autograd.Function):
     the scale."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, stats):
-        y, mu, rstd = _forward(x, scale, bias, eps, stats, with_stats=True)
+    def forward(ctx, x, scale, bias, eps, stats, width):
+        y, mu, rstd = _forward(x, scale, bias, eps, stats, width,
+                               with_stats=True)
         ctx.save_for_backward(x, scale, mu, rstd)
+        ctx.width = width
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, scale, mu, rstd = ctx.saved_tensors
-        return _backward(x, dy, scale, mu, rstd), None, None, None, None
+        dx = _backward(x, dy, scale, mu, rstd, ctx.width)
+        return dx, None, None, None, None, None
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float, stats: str = "centered") -> torch.Tensor:
-    """The layernorm of x [..., K] (see the module): the autograd function
-    where a gradient can flow to x, else the forward alone. Scale and bias
-    take no gradient: one that needs one raises."""
+               eps: float, stats: str = "centered",
+               width=None) -> torch.Tensor:
+    """The layernorm of x [..., K] (see the module), over its first `width`
+    columns where given: the autograd function where a gradient can flow
+    to x, else the forward alone. Scale and bias take no gradient: one that
+    needs one raises."""
     if scale.requires_grad or bias.requires_grad:
         raise ValueError("layer_norm computes no gradient for its scale and "
                          "bias: run layer_norm_plain where they are trained")
     if torch.is_grad_enabled() and x.requires_grad:
-        return LayerNorm.apply(x, scale, bias, eps, stats)
-    return _forward(x, scale, bias, eps, stats, with_stats=False)[0]
+        return LayerNorm.apply(x, scale, bias, eps, stats, width)
+    return _forward(x, scale, bias, eps, stats, width, with_stats=False)[0]
 
 
 layer_norm.launches = 0
+layer_norm.strided_launches = 0

@@ -6,8 +6,11 @@ gu's dtype. Its gradient with respect to gu is [du | dg]:
 
     du = dy * g * sig(u) * (1 + u * (1 - sig(u))),    dg = dy * SiLU(u),
 
-also in f32 and rounded once. F is the true width (2730 at EVA02-L/14): no
-column is padded.
+also in f32 and rounded once. F is the width of gu's halves as stored: the
+true width on the CPU (2730 at EVA02-L/14), on the card the padded one
+(2736), whose columns past the true width are zero in u and g and so give 0
+forward and [0 | 0] backward (`models/eva02.py::card_layout` lays out
+[W1 | 0 | W2 | 0] where the weights are placed on the card).
 
 A CPU tensor takes the plain versions (`swiglu_plain`, `swiglu_grad_plain`);
 a CUDA tensor the hand-written kernels of `csrc/swiglu.cu`; anything the
