@@ -229,7 +229,28 @@ per source, side by side), then:
    and dx, against the plain version as phase 41 holds it (the padding
    filled with values it must not read, y and dx exactly 0 past 2730, a
    launch and a strided launch counted each way), its median times beside
-   the unmasked kernel's at 2730.
+   the unmasked kernel's at 2730;
+43. AIMv2-L/14's kernels (`models/aimv2.py`): ptxas on K1/K2's head-dim-128
+   instances, the RMS layernorm kernels and K6's RMS instances; K1/K2 at
+   [512, 256, 1024] bf16, 8 heads of 128, against the plain version within
+   FWD_BOUND and BWD_BOUND_REL, with the median times beside the bound and
+   beside 16 heads of 64 at the same shape; the RMS layernorm forward and
+   dx at [131072, 1024] bf16 against the plain version as phase 41 holds
+   the layernorm (an RMS launch counted each way), timed beside the
+   centered kernel, and at the text tower's [77000, 768] (the class table of
+   1000 classes, another instance of the kernels) as phase 41 holds it; K6
+   with the RMS statistics at [131072, 1024] x [1024,
+   N], N = 3072 (RMSNorm_1 -> qkv) and 5632 (RMSNorm_2 -> [Wg | Wu]),
+   against the plain version as phase 20 holds K6's `linear` epilogue,
+   timed beside the unfolded rms_norm -> linear and the centered K6; the
+   SwiGLU kernels at AIM_SWIGLU_SHAPES (F = 2816 at the prefix's
+   [131072, 2 x 2816] and the clean pass's [2048, 2 x 2816] bf16) as phase
+   40 holds them, timed at the prefix's; then
+   the AIMv2 path, `--arch AIMv2-L-14-224-LiT` through `runner.run` as
+   phase 4 drives ViT-B/16 (K1 27, K2 3, K6 and its RMS launches 42 a
+   batch; the text tower's 25 norms once and 21 a batch, every one of them
+   an RMS launch). Every other path's K6 RMS and RMS layernorm launches are
+   0, asserted with its counts.
 
 K6 with `linear`'s epilogue ("K6 linear" in the launch counts, which "K6"
 counts too) runs q, k, v and fc1 of every full-precision vision layer that
@@ -469,6 +490,22 @@ MLP_D, MLP_F, MLP_FP = 1024, 2730, 2736
 # output (2^-7 of it) at each rounding, plus 2^-12 of the largest where the
 # bias add cancels
 MLP_BOUND = (2.0 ** -6, 2.0 ** -12)
+# AIMv2-L/14's step (phase 43): 8 images x 64 views of 256 tokens (no class
+# token), width 1024 in 8 heads of 128; the prefix folds RMSNorm_1 -> qkv
+# and RMSNorm_2 -> [Wg | Wu] into K6
+AIM_ROWS = 512 * 256
+AIM_D, AIM_HEADS, AIM_HD = 1024, 8, 128
+AIM_K6_N = (3072, 5632)
+# its SwiGLU (F = 2816, bias-free) at the prefix's rows and the clean pass's
+# (8 views of 256), and the text tower's RMS width over the class table's
+# rows (1000 classes of 77 tokens)
+AIM_SWIGLU_SHAPES = [(AIM_ROWS, 2816, torch.bfloat16),
+                     (8 * 256, 2816, torch.bfloat16)]
+AIM_TEXT_ROWS, AIM_TEXT_D = 1000 * 77, 768
+# the AIMv2 path's launches a batch of 8 (the main path, no zero-shot aux
+# pass): K1 in the 24 layers and the clean view's 3, K2 in the window, K6
+# twice in each of the 21 prefix layers, all with the RMS statistics
+AIM_PATH = {"K1": 27, "K2": 3, "K6": 42, "K6 linear": 42, "K6 RMS": 42}
 # The CoCoOp sample of the card-against-CPU run. With random weights the
 # features barely depend on the image and the two best of the 200 classes
 # lie close: of the images made from seeds 1 to 12, this one keeps them
@@ -872,54 +909,65 @@ def phase_swiglu(tsw) -> dict:
     g = torch.Generator().manual_seed(SEED + 40)
     results = {}
     for rows, f, dtype in SWIGLU_SHAPES:
-        shape = f"[{rows}, 2 x {f}] {dtype}"
         gu = (torch.randn(rows, 2 * f, generator=g) * 3).to("cuda", dtype)
         dy = torch.randn(rows, f, generator=g).to("cuda", dtype)
-        before = tsw.swiglu.launches
-        out = tsw.swiglu(gu)
-        grad = tsw.swiglu_grad_cuda(gu, dy)
-        torch.cuda.synchronize()
-        if tsw.swiglu.launches != before + 1:
-            raise AssertionError(f"SwiGLU at {shape}: no launch was counted")
-        errs = {}
-        for which, got, want in (
-                ("fwd", out, tsw.swiglu_plain(gu)),
-                ("bwd", grad, tsw.swiglu_grad_plain(gu, dy))):
-            rel, floor = SWIGLU_BOUND[dtype]
-            got, want = got.float(), want.float()
-            err = (got - want).abs()
-            limit = rel * want.abs() + floor * want.abs().max()
-            share = (err > 0).float().mean().item()
-            if not torch.isfinite(got).all() or (err > limit).any() \
-                    or share > SWIGLU_SHARE[dtype]:
-                raise AssertionError(
-                    f"SwiGLU {which} at {shape} disagrees with its plain "
-                    f"version: {err.max().item():.3e} at most, "
-                    f"{(err > limit).sum().item()} outputs past the bound, "
-                    f"{share:.2e} of them differing")
-            errs[which] = (err.max().item(), share)
-        if not (torch.equal(out, tsw.swiglu_cuda(gu))
-                and torch.equal(grad, tsw.swiglu_grad_cuda(gu, dy))):
-            raise AssertionError(f"SwiGLU at {shape}: two calls on the same "
-                                 "inputs gave different bits")
-        r = {"max_abs_err": max(e for e, _ in errs.values()),
-             "fwd_differing": errs["fwd"][1], "bwd_differing": errs["bwd"][1]}
-        if (rows, f, dtype) == SWIGLU_STEP:
-            item = gu.element_size()
-            r.update(
-                ms=median_ms(lambda: tsw.swiglu_cuda(gu)),
-                bwd_ms=median_ms(lambda: tsw.swiglu_grad_cuda(gu, dy)),
-                plain_ms=median_ms(lambda: tsw.swiglu_plain(gu), reps=5),
-                bwd_plain_ms=median_ms(
-                    lambda: tsw.swiglu_grad_plain(gu, dy), reps=5),
-                bound_ms=rows * 3 * f * item / 3.35e9,
-                bwd_bound_ms=rows * 5 * f * item / 3.35e9, bound_by="bytes")
-        log(f"SwiGLU {shape}: " + ", ".join(
-            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
-            for k, v in r.items()))
-        results[(rows, f, dtype)] = r
-        del gu, dy, out, grad
+        results[(rows, f, dtype)] = swiglu_against_plain(
+            tsw, gu, dy, timed=(rows, f, dtype) == SWIGLU_STEP)
+        del gu, dy
     return results
+
+
+def swiglu_against_plain(tsw, gu, dy, timed: bool) -> dict:
+    """The SwiGLU kernels' forward and backward on gu [rows, 2F] and dy
+    [rows, F], a launch counted, against their plain versions within
+    SWIGLU_BOUND with under SWIGLU_SHARE of the outputs differing, and the
+    same bits from a second call; where `timed`, the median times beside
+    the plain versions' and the bound (bytes over 3.35 TB/s)."""
+    rows, f, dtype = dy.shape[0], dy.shape[1], dy.dtype
+    shape = f"[{rows}, 2 x {f}] {dtype}"
+    before = tsw.swiglu.launches
+    out = tsw.swiglu(gu)
+    grad = tsw.swiglu_grad_cuda(gu, dy)
+    torch.cuda.synchronize()
+    if tsw.swiglu.launches != before + 1:
+        raise AssertionError(f"SwiGLU at {shape}: no launch was counted")
+    errs = {}
+    for which, got, want in (
+            ("fwd", out, tsw.swiglu_plain(gu)),
+            ("bwd", grad, tsw.swiglu_grad_plain(gu, dy))):
+        rel, floor = SWIGLU_BOUND[dtype]
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        limit = rel * want.abs() + floor * want.abs().max()
+        share = (err > 0).float().mean().item()
+        if not torch.isfinite(got).all() or (err > limit).any() \
+                or share > SWIGLU_SHARE[dtype]:
+            raise AssertionError(
+                f"SwiGLU {which} at {shape} disagrees with its plain "
+                f"version: {err.max().item():.3e} at most, "
+                f"{(err > limit).sum().item()} outputs past the bound, "
+                f"{share:.2e} of them differing")
+        errs[which] = (err.max().item(), share)
+    if not (torch.equal(out, tsw.swiglu_cuda(gu))
+            and torch.equal(grad, tsw.swiglu_grad_cuda(gu, dy))):
+        raise AssertionError(f"SwiGLU at {shape}: two calls on the same "
+                             "inputs gave different bits")
+    r = {"max_abs_err": max(e for e, _ in errs.values()),
+         "fwd_differing": errs["fwd"][1], "bwd_differing": errs["bwd"][1]}
+    if timed:
+        item = gu.element_size()
+        r.update(
+            ms=median_ms(lambda: tsw.swiglu_cuda(gu)),
+            bwd_ms=median_ms(lambda: tsw.swiglu_grad_cuda(gu, dy)),
+            plain_ms=median_ms(lambda: tsw.swiglu_plain(gu), reps=5),
+            bwd_plain_ms=median_ms(
+                lambda: tsw.swiglu_grad_plain(gu, dy), reps=5),
+            bound_ms=rows * 3 * f * item / 3.35e9,
+            bwd_bound_ms=rows * 5 * f * item / 3.35e9, bound_by="bytes")
+    log(f"SwiGLU {shape}: " + ", ".join(
+        f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in r.items()))
+    return r
 
 
 def ln_inputs(g, rows: int, k: int, dtype):
@@ -1162,6 +1210,182 @@ def phase_mlp_stride(tln) -> dict:
     return results
 
 
+def in_turns(fns: dict) -> dict:
+    """The least of two median times of each of `fns`, timed in turns (each
+    in order, then each in the reverse order), so that the clocks of one
+    stretch of the call do not fall on one of them alone."""
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        times[name].append(median_ms(fns[name]))
+    return {name: min(t) for name, t in times.items()}
+
+
+def phase_aimv2(fa, tq, tlm, tln, tsw) -> dict:
+    """AIMv2-L/14's kernels and path (see the module's phase 43)."""
+    from ttl_tpu_torch.models.aimv2 import rms_norm
+    from ttl_tpu_torch.models.clip import linear
+    from ttl_tpu_torch.ops import _build
+    log("ptxas at AIMv2's head dim 128 and RMS statistics:")
+    for key, used in sorted(_build.kernel_resources().items()):
+        if ("attention_bshd.cu" in key and "mma_" in key and "ILi128E" in key
+                or "rms_norm" in key or "ln_matmul_wgmma" in key
+                and "Lb1E" in key):
+            log(f"  {key}: {used}")
+            if "mma_" not in key and not re.search(
+                    r"\b0 bytes spill stores, 0 bytes spill loads", used):
+                raise AssertionError(f"{key} spills: {used}")
+    g = torch.Generator("cuda").manual_seed(SEED + 43)
+    bf16 = torch.bfloat16
+    results = {}
+    # K1/K2 at 8 heads of 128, and 16 heads of 64 on the same bytes
+    b, s, h, d = AIM_ROWS // 256, 256, AIM_HEADS, AIM_HD
+    q, k, v, do = (torch.randn(b, s, h * d, device="cuda",
+                               generator=g).to(bf16) for _ in range(4))
+    for backward in (False, True):
+        if fa.kernel_route(backward, bf16, s, d) != "tensor cores":
+            raise AssertionError("K1/K2 at head dim 128 left the tensor "
+                                 "cores")
+    before = (fa.attention_bshd.fwd_launches, fa.attention_bshd.bwd_launches)
+    out = fa.bshd_forward_cuda(q, k, v, h, s)
+    grads = fa.bshd_backward_cuda(q, k, v, do, h, s)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = fa.attention_bshd_plain(*leaves, h, s)
+    ref.backward(do)
+    torch.cuda.synchronize()
+    if (fa.attention_bshd.fwd_launches, fa.attention_bshd.bwd_launches) != (
+            before[0] + 1, before[1] + 1):
+        raise AssertionError("K1/K2 at head dim 128: no launch was counted")
+    ref = ref.detach().float()
+    fwd_err = (out.float() - ref).abs().max().item()
+    if not fwd_err <= FWD_BOUND[bf16] * max(1.0, ref.abs().max().item()):
+        raise AssertionError(f"K1 at head dim 128: {fwd_err}")
+    bwd_err = 0.0
+    for got, leaf, name in zip(grads, leaves, "qkv"):
+        want = leaf.grad.float()
+        err = (got.float() - want).abs().max().item()
+        if not torch.isfinite(got).all() or \
+                not err <= BWD_BOUND_REL[bf16] * want.abs().max().item():
+            raise AssertionError(f"K2's d{name} at head dim 128: {err}")
+        bwd_err = max(bwd_err, err)
+    del ref, leaves, grads, out
+    if not torch.equal(fa.bshd_backward_cuda(q, k, v, do, h, s)[0],
+                       fa.bshd_backward_cuda(q, k, v, do, h, s)[0]):
+        raise AssertionError("K2 at head dim 128: two calls gave different "
+                             "bits")
+    shape = f"[{b}, {s}, {h * d}] bf16, {h} heads of {d}"
+    for which, fn, fn64, n, flops in (
+            ("fwd", lambda: fa.bshd_forward_cuda(q, k, v, h, s),
+             lambda: fa.bshd_forward_cuda(q, k, v, 2 * h, s), 4, 4),
+            ("bwd", lambda: fa.bshd_backward_cuda(q, k, v, do, h, s),
+             lambda: fa.bshd_backward_cuda(q, k, v, do, 2 * h, s), 7, 10)):
+        r = {"max_abs_err": fwd_err if which == "fwd" else bwd_err,
+             "ms": median_ms(fn), "d64_ms": median_ms(fn64),
+             **attention_bound(n, flops, b, h, s, d, bf16)}
+        results[f"K{1 if which == 'fwd' else 2} {shape}"] = r
+        log(f"K{1 if which == 'fwd' else 2} {shape}: " + ", ".join(
+            f"{k_} {v_:.4g}" if isinstance(v_, float) else f"{k_} {v_}"
+            for k_, v_ in r.items()))
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    # the RMS layernorm kernels, beside the centered ones
+    x, scale, bias, dy = ln_inputs(g, AIM_ROWS, AIM_D, bf16)
+    before = tln.layer_norm.rms_launches
+    errs, out, grad, plain, leaf = ln_against_plain(tln, x, scale, bias, dy,
+                                                    1e-5, "rms")
+    if tln.layer_norm.rms_launches != before + 2:
+        raise AssertionError("the RMS layernorm: its launches were not "
+                             "counted as RMS")
+    del out, grad, plain, leaf
+    _, mu, rstd = tln.layer_norm_cuda(x, scale, None, 1e-5, True, "rms")
+    _, cmu, crstd = tln.layer_norm_cuda(x, scale, bias, 1e-5, True)
+    rows, width = x.shape
+    r = {"fwd_max_abs_err": errs["fwd"][0], "bwd_max_abs_err": errs["bwd"][0],
+         "fwd_differing": errs["fwd"][1], "bwd_differing": errs["bwd"][1],
+         **in_turns({
+             "ms": lambda: tln.layer_norm_cuda(x, scale, None, 1e-5,
+                                               stats="rms"),
+             "centered_ms": lambda: tln.layer_norm_cuda(x, scale, bias,
+                                                        1e-5),
+             "bwd_ms": lambda: tln.layer_norm_grad_cuda(
+                 x, dy, scale, mu, rstd, stats="rms"),
+             "centered_bwd_ms": lambda: tln.layer_norm_grad_cuda(
+                 x, dy, scale, cmu, crstd)}),
+         "bound_ms": rows * 2 * width * 2 / 3.35e9,
+         "bwd_bound_ms": rows * 3 * width * 2 / 3.35e9, "bound_by": "bytes"}
+    results[f"RMS layernorm [{rows}, {width}] bf16"] = r
+    log(f"RMS layernorm [{rows}, {width}] bf16: " + ", ".join(
+        f"{k_} {v_:.4g}" if isinstance(v_, float) else f"{k_} {v_}"
+        for k_, v_ in r.items()))
+    del dy, mu, rstd, cmu, crstd
+    # the text tower's RMS width, its own instance of the kernels
+    tx, tscale, tbias, tdy = ln_inputs(g, AIM_TEXT_ROWS, AIM_TEXT_D, bf16)
+    errs = ln_against_plain(tln, tx, tscale, tbias, tdy, 1e-5, "rms")[0]
+    r = {"fwd_max_abs_err": errs["fwd"][0], "bwd_max_abs_err": errs["bwd"][0],
+         "fwd_differing": errs["fwd"][1], "bwd_differing": errs["bwd"][1]}
+    results[f"RMS layernorm [{AIM_TEXT_ROWS}, {AIM_TEXT_D}] bf16"] = r
+    log(f"RMS layernorm [{AIM_TEXT_ROWS}, {AIM_TEXT_D}] bf16: " + ", ".join(
+        f"{k_} {v_:.4g}" for k_, v_ in r.items()))
+    del tx, tscale, tbias, tdy
+    # K6 with the RMS statistics, beside the unfolded pair and centered K6
+    norm = {"scale": scale}
+    matmul = torch.backends.cuda.matmul
+    for n in AIM_K6_N:
+        w = (torch.randn(width, n, device="cuda", generator=g)
+             / width ** 0.5).to(bf16)
+        zero = torch.zeros(n, device="cuda", dtype=bf16)
+        before = (tlm.ln_matmul.launches, tlm.ln_matmul.rms_launches)
+        got = tlm.ln_matmul(x, scale, None, w, None, 1e-5, "linear",
+                            stats="rms")
+        reduced = matmul.allow_bf16_reduced_precision_reduction
+        matmul.allow_bf16_reduced_precision_reduction = False
+        try:
+            want = tlm.ln_matmul_plain(x, scale, None, w, None, 1e-5,
+                                       "linear", stats="rms")
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = reduced
+        torch.cuda.synchronize()
+        if (tlm.ln_matmul.launches, tlm.ln_matmul.rms_launches) != (
+                before[0] + 1, before[1] + 1):
+            raise AssertionError("K6 RMS: no RMS launch was counted")
+        diff = (got.float() - want.float()).abs()
+        err, share = diff.max().item(), (diff > 0).float().mean().item()
+        limit = K6_BOUND[bf16] * max(1.0, want.float().abs().max().item())
+        shape = f"[{rows}, {width}] x [{width}, {n}] bf16"
+        if not torch.isfinite(got).all() or not err <= limit \
+                or not share < K6_LINEAR_SHARE:
+            raise AssertionError(f"K6 RMS at {shape}: {err} > {limit} or "
+                                 f"{share} of the outputs differ")
+        del got, want, diff
+        r = {"max_abs_err": err, "share_differ": share, **in_turns({
+            "ms": lambda: tlm.ln_matmul(x, scale, None, w, None, 1e-5,
+                                        "linear", stats="rms"),
+            "chain_ms": lambda: linear(rms_norm(x, norm, 1e-5), {"w": w}),
+            "centered_ms": lambda: tlm.ln_matmul(x, scale, bias, w, zero,
+                                                 1e-5, "linear")}),
+             **bound((rows * width + width * n + rows * n) * 2 + 4 * width,
+                     2 * rows * width * n, bf16)}
+        r["tflops"] = 2e-9 * rows * width * n / r["ms"]
+        results[f"K6 RMS {shape}"] = r
+        log(f"K6 RMS {shape}: " + ", ".join(
+            f"{k_} {v_:.4g}" if isinstance(v_, float) else f"{k_} {v_}"
+            for k_, v_ in r.items()))
+        del w, zero
+    del x, scale, bias
+    torch.cuda.empty_cache()
+    # the bias-free SwiGLU at AIMv2's width, timed at the prefix's rows
+    for rows, f, dtype in AIM_SWIGLU_SHAPES:
+        gu = torch.randn(rows, 2 * f, device="cuda", generator=g) * 3
+        dy = torch.randn(rows, f, device="cuda", generator=g)
+        results[f"SwiGLU [{rows}, 2 x {f}] bf16"] = swiglu_against_plain(
+            tsw, gu.to(dtype), dy.to(dtype), timed=rows == AIM_ROWS)
+        del gu, dy
+        torch.cuda.empty_cache()
+    results["path"] = phase_path(
+        fa, tq, "AIMv2-L/14", config("--arch", "AIMv2-L-14-224-LiT"),
+        AIM_PATH, (LN_TEXT, LN_MAIN), rms=True)
+    return results
+
+
 def phase_k6(tlm) -> dict:
     """K6 against ln_matmul_plain on the card at K6_SHAPES, with the pair of
     library calls that computes the same function (F.layer_norm, F.linear;
@@ -1399,7 +1623,8 @@ def launch_counts(fa, tq) -> dict:
             "K4 fwd": fa.attention_heads.fwd_launches,
             "K4 bwd": fa.attention_heads.bwd_launches,
             "K5": tq.linear_q.launches, "K6": ln_matmul.launches,
-            "K6 linear": ln_matmul.linear_launches}
+            "K6 linear": ln_matmul.linear_launches,
+            "K6 RMS": ln_matmul.rms_launches}
 
 
 @contextlib.contextmanager
@@ -1428,7 +1653,8 @@ def reset_counts(fa, tq) -> None:
     fa.reset_launch_counts()
     tq.linear_q.launches = 0
     ln_matmul.launches = ln_matmul.linear_launches = 0
-    layer_norm.launches = 0
+    ln_matmul.rms_launches = 0
+    layer_norm.launches = layer_norm.rms_launches = 0
 
 
 def step_factory(cfg) -> str:
@@ -1459,10 +1685,11 @@ def drive(cfg, probe, n_images: int):
 
 
 def phase_path(fa, tq, name: str, cfg, per_batch: dict, ln: tuple,
-               timed: bool = True) -> dict:
+               timed: bool = True, rms: bool = False) -> dict:
     """Drive runner.run over 16 images and check the launches per batch
     (kernels `per_batch` does not name must not launch) and the layernorm
-    launches of the run, `ln` = (once, a batch); then, if `timed`,
+    launches of the run, `ln` = (once, a batch), every one of them with the
+    RMS statistics where `rms` and none otherwise; then, if `timed`,
     time 80 images in steady state, with the run's peak device memory, and
     profile one batch."""
     from ttl_tpu_torch import runner
@@ -1489,6 +1716,10 @@ def phase_path(fa, tq, name: str, cfg, per_batch: dict, ln: tuple,
         raise AssertionError(f"{name}: expected {ln[0]} layernorm launches "
                              f"once and {ln[1]} a batch, got {ln_run} over "
                              f"{n_batches} batches")
+    if layer_norm.rms_launches != (ln_run if rms else 0):
+        raise AssertionError(f"{name}: {layer_norm.rms_launches} of the "
+                             f"{ln_run} layernorm launches took the RMS "
+                             f"statistics, expected {'all' if rms else 0}")
     top1, top5 = res["A"]
     if not (0.0 <= top1 <= 100.0 and 0.0 <= top5 <= 100.0):
         raise AssertionError(f"top-1/top-5 out of range: {res['A']}")
@@ -3500,7 +3731,8 @@ def main() -> int:
                        (39, lambda: phase_bench_ranks(lib.parent)),
                        (40, lambda: phase_swiglu(tsw)),
                        (41, lambda: phase_layer_norm(tln)),
-                       (42, lambda: phase_mlp_stride(tln))):
+                       (42, lambda: phase_mlp_stride(tln)),
+                       (43, lambda: phase_aimv2(fa, tq, tlm, tln, tsw))):
         start = time.perf_counter()
         seconds[phase] = (run(), time.perf_counter() - start)
         log(f"phase {phase} took {seconds[phase][1]:.1f} s")
@@ -3532,7 +3764,8 @@ def main() -> int:
              "PLPD": plpd_path, "AugMix": augmix_path,
              "RN50 prompt tuning (heads)": rn50_tpt,
              "RN50 zero-shot": rn50_zero_shot,
-             "predict": predict_runs.pop("predict")}
+             "predict": predict_runs.pop("predict"),
+             "AIMv2-L/14": seconds[43][0].pop("path")}
     log("steady samples/s, device busy share, device ms per batch, peak "
         "device memory: "
         + "; ".join(f"{name} {r['samples_per_s']:.3f}, "
@@ -3560,6 +3793,7 @@ def main() -> int:
     swiglu = seconds[40][0]
     ln_results = seconds[41][0]
     mlp = seconds[42][0]
+    aim = seconds[43][0]
     ln_by_path = {name: r["layer_norm"] for name, r in paths.items()
                   if "layer_norm" in r}
     log(f"layernorm launches over each path's run of 16 images: "
@@ -3645,6 +3879,11 @@ def main() -> int:
                     for (m, k, d), r in ln_results.items()},
          "strided": {f"[{MLP_ROWS}, {MLP_FP}] bf16 at width {MLP_F}":
                      mlp["layer_norm"]}},
+        {"name": "aimv2", "route": "cuda",
+         "source": "attention_bshd.cu, layer_norm.cu, ln_matmul.cu",
+         "replaces": "none (AIMv2-L/14's head dim 128 and RMS statistics)",
+         "shapes": aim,
+         "rms_launches_by_path": by_path("K6 RMS")},
     ]
     print(json.dumps({"kernels": kernels}, default=str))
     print(smi)

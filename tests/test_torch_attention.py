@@ -448,12 +448,13 @@ def _split_matmul(x, y):
     return hi @ y + _bf(x - hi) @ y
 
 
-def _mma_tiles(s, backward=False):
+def _mma_tiles(s, backward=False, d=64):
     """(rows a block, rows a stage) the launcher picks for S tokens: the
-    forward's 128-row blocks where they pad S no more than 64-row ones."""
+    forward's 128-row blocks where they pad S no more than 64-row ones; at
+    head dim 128 the forward's 64-row blocks and stages of 32."""
     if s <= 32:
         return 32, 32
-    if backward:
+    if backward or d == 128:
         return 64, 32
     return (128 if (s + 63) // 64 % 2 == 0 else 64), 64
 
@@ -477,7 +478,7 @@ def emulate_mma_forward(q, k, v, causal, visited=None, seq_len=None):
     first key) of every (warp, stage) multiplied."""
     s = q.shape[-2]
     seq_len = s if seq_len is None else seq_len
-    block, kt = _mma_tiles(s)
+    block, kt = _mma_tiles(s, d=q.shape[-1])
     qf, kf, vf = q.float(), k.float(), v.float()
     out = torch.empty_like(qf)
     for r0 in range(0, s, 16):
@@ -774,6 +775,12 @@ BSHD_MMA_CASES = [
     (2, 48, 3, 32, 30),      # a ragged tile
     (1, 112, 2, 64, 70),     # two stages, the second mostly padding
 ]
+# head dim 128 (AIMv2's) through the same walk, its forward in 64-row blocks
+# and stages of 32 keys
+BSHD_MMA_D128_CASES = [
+    (2, 256, 2, 128, 256),   # AIMv2-L/14's 256 tokens
+    (1, 112, 2, 128, 70),
+]
 
 
 def emulate_bshd_forward(q, k, v, heads, seq_len):
@@ -794,7 +801,8 @@ def _bshd_bf16(b, s, h, d, seed, n):
             for t in _inputs(b, s, h, d, seed=seed, n=n)]
 
 
-@pytest.mark.parametrize("b,s,h,d,seq_len", BSHD_MMA_CASES)
+@pytest.mark.parametrize("b,s,h,d,seq_len",
+                         BSHD_MMA_CASES + BSHD_MMA_D128_CASES)
 def test_mma_emulation_bshd_matches_plain(b, s, h, d, seq_len):
     """The rows the towers read (below seq_len) within the card run's
     bounds; dK and dV of padded keys exactly 0, as the plain version's."""

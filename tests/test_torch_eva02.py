@@ -56,7 +56,7 @@ from ttl_tpu_torch.models.zoo import EVA02_TINY, TEST_TINY
 from ttl_tpu_torch.ops import quant as tq
 from ttl_tpu_torch.ops import rope as trope
 from ttl_tpu_torch.ops import swiglu as tsw
-from ttl_tpu_torch.runner import load_model, make_adapters0
+from ttl_tpu_torch.runner import check_model_axis, load_model, make_adapters0
 
 REF = architecture({"architecture": "eva02"})
 SEED = 2 ** 31 + 12345
@@ -577,18 +577,15 @@ def test_cocoop_frozen_tower_is_bit_for_bit_as_before(arch, stats, dtype,
 # --------------------------------------------------------- refused modes
 
 def test_int8_prefix_and_model_axis_raise(tiny):
-    cfg, clip_cfg, params, _, views, _, _ = tiny
+    cfg, clip_cfg, _, _, _, _, _ = tiny
     with pytest.raises(ValueError, match="int8"):
         tq.quant_prefix_len(cfg, clip_cfg)
     with pytest.raises(ValueError, match="int8"):
         load_model(ttl_config(prefix_quant="int8"), "cpu")
-    layers = params["vision"]["layers"]
-    split = {**layers, "o": {"w": layers["o"]["w"][:, :16],
-                             "b": layers["o"]["b"]}}
-    vision = {**params["vision"], "layers": split}
     with pytest.raises(ValueError, match="model axis"):
-        tclip.vision_prefix(vision, views[0], clip_cfg.vision, upto=2,
-                            compute_dtype=torch.float32)
+        load_model(ttl_config(mesh_shape=(1, 2)), "cpu")
+    with pytest.raises(ValueError, match="model axis"):
+        check_model_axis(clip_cfg, (2, 2))
 
 
 # ------------------------------------------------------------- on the card

@@ -12,6 +12,9 @@ and, each section on the same inputs in one process, with CUDA events:
 - `wide`: the forward with 4 and with 8 warps a block (64 and 128 query
   rows), on K3's and K4's [B, H, S, D] grids and on K1's [B, S, H*D] rows,
   at every S the paths launch (32, 64, 197, 208, 272, 592);
+- `d128`: K1 and K2 at head dim 128 on AIMv2-L/14's rows, [512, 256,
+  1024] bf16 in 8 heads, under every height built for it, each checked
+  against the plain version, in turns (each height, then again backwards);
 - `parent` (with `--parent DIR`, the root of a checkout of another commit,
   for example `git archive` of the parent unpacked under build/): K1 and K2
   of this checkout against that checkout's `csrc/attention_bshd.cu` at the
@@ -20,8 +23,8 @@ and, each section on the same inputs in one process, with CUDA events:
 
 Run from the root of the repository, on a machine with the card and nvcc:
 
-    python3 tools/torch_attention_tiles.py [--sections tiles wide parent]
-        [--parent DIR]
+    python3 tools/torch_attention_tiles.py [--sections tiles wide d128
+        parent] [--parent DIR]
 """
 from __future__ import annotations
 
@@ -60,6 +63,10 @@ WIDE = [(1600, 8, 32, 32), (512, 12, 64, 50), (512, 12, 197, 197),
 # width): ViT-B/16, ViT-L/14, ViT-L/14@336px
 PARENT = [(512, 208, 197, 12, 768), (64, 272, 257, 16, 1024),
           (16, 592, 577, 16, 1024)]
+# the `d128` section: (B, S, H) and the heights tried forward and backward
+D128 = (512, 256, 8)
+D128_FWD = [(4, 64, 2), (8, 64, 2), (4, 32, 2), (8, 32, 2)]
+D128_BWD = [(4, 32, 2), (2, 32, 2), (4, 16, 2), (4, 32, 3)]
 
 
 def nvcc_shared(out: str, source: str) -> float:
@@ -88,6 +95,9 @@ class Tiles:
         self.lib.ttl_tiles_run.argtypes = [i, i, i, p, p, p, p, p, p, p, p,
                                            p, i, i, i, i, i, f, p]
         self.lib.ttl_tiles_run.restype = i
+        self.lib.ttl_tiles_run_d128.argtypes = [i, i, p, p, p, p, p, p, p,
+                                                p, p, i, i, i, i, f, p]
+        self.lib.ttl_tiles_run_d128.restype = i
 
     def call(self, tiles, bwd, layout, q, k, v, do, outs, stats, b, h, s,
              seq_len, causal):
@@ -99,6 +109,54 @@ class Tiles:
             torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"{tiles} on layout {layout}: code {rc}")
+
+
+    def call_d128(self, tiles, bwd, q, k, v, do, outs, stats, b, h, s):
+        w, kt, ns = tiles
+        rc = self.lib.ttl_tiles_run_d128(
+            100 * w + kt + ns, bwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), *(t.data_ptr() for t in outs), stats.data_ptr(),
+            b, h, s, s, 128 ** -0.5, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"{tiles} at head dim 128: code {rc}")
+
+
+def section_d128(tl: Tiles) -> None:
+    """K1 and K2 at head dim 128 under each height, in turns."""
+    b, s, h = D128
+    q, k, v, do = (randn(b, s, h * 128, seed=s + i) for i in range(4))
+    outs = [torch.empty_like(q) for _ in range(4)]   # o, dq, dk, dv
+    stats = torch.empty(3, b * h * s, device="cuda")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = fa.attention_bshd_plain(*leaves, h, s)
+    want = torch.autograd.grad(ref, leaves, do)
+    ref = ref.detach().float()
+    for bwd, heights in ((0, D128_FWD), (1, D128_BWD)):
+        times = {}
+        for tiles in heights + heights[::-1]:
+            def call():
+                tl.call_d128(tiles, bwd, q, k, v, do, outs, stats, b, h, s)
+            for t in outs:
+                t.zero_()
+            call()
+            torch.cuda.synchronize()
+            if bwd:
+                err = max(((a.float() - x.float()).abs().max()
+                           / x.float().abs().max()).item()
+                          for a, x in zip(outs[1:], want))
+                limit = cs.BWD_BOUND_REL[torch.bfloat16]
+            else:
+                err = ((outs[0].float() - ref).abs().max()
+                       / max(1.0, ref.abs().max().item())).item()
+                limit = cs.FWD_BOUND[torch.bfloat16]
+            if not err <= limit:
+                raise AssertionError(f"{tiles} at head dim 128: {err}")
+            times.setdefault(tiles, []).append(cs.median_ms(call))
+        cs.log(f"K{2 if bwd else 1} [{b}, {s}, {h * 128}] bf16, {h} heads of "
+               f"128: " + ", ".join(
+                   f"{w} warps, {kt} rows a stage, {ns} stages "
+                   f"{min(t):.4f} ms ({'/'.join(f'{x:.4f}' for x in t)})"
+                   for (w, kt, ns), t in times.items()))
 
 
 def section_tiles(tl: Tiles) -> None:
@@ -251,7 +309,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sections", nargs="+", default=["tiles", "wide",
                                                       "parent"],
-                    choices=["tiles", "wide", "parent"])
+                    choices=["tiles", "wide", "d128", "parent"])
     ap.add_argument("--parent", help="root of a checkout of another commit")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -263,12 +321,14 @@ def main() -> int:
     cs.log(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     out_dir = os.path.join(ROOT, "build", "tiles")
     os.makedirs(out_dir, exist_ok=True)
-    if {"tiles", "wide"} & set(args.sections):
+    if {"tiles", "wide", "d128"} & set(args.sections):
         tl = Tiles(out_dir)
         if "tiles" in args.sections:
             section_tiles(tl)
         if "wide" in args.sections:
             section_wide(tl)
+        if "d128" in args.sections:
+            section_d128(tl)
     if "parent" in args.sections and args.parent:
         section_parent(args.parent, out_dir)
     return 0

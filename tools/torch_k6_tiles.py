@@ -78,7 +78,7 @@ def write_variant(name: str) -> tuple[str, list[str]]:
     returns the library's path and its nvcc command."""
     out = os.path.join(ROOT, "build", "k6_tiles", name.replace(",", "_"))
     os.makedirs(out, exist_ok=True)
-    for header in ("mma_sm90.cuh", "wgmma_sm90.cuh"):
+    for header in ("layer_norm.cuh", "mma_sm90.cuh", "wgmma_sm90.cuh"):
         shutil.copy(_build.CSRC / header, out)
     src = (_build.CSRC / "ln_matmul.cu").read_text()
     for var, value in tile_of(name).items():
@@ -97,7 +97,7 @@ def write_variant(name: str) -> tuple[str, list[str]]:
 def load(lib: str) -> ctypes.CDLL:
     dll = ctypes.CDLL(lib)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dll.ttl_ln_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, p]
+    dll.ttl_ln_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, p]
     dll.ttl_ln_matmul.restype = i
     return dll
 
@@ -106,7 +106,7 @@ def call(dll, x, scale, bias, w, b, out):
     m, k = x.shape
     rc = dll.ttl_ln_matmul(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w.data_ptr(),
-        b.data_ptr(), out.data_ptr(), 1, 0, m, k, out.shape[1], 1e-5,
+        b.data_ptr(), out.data_ptr(), 1, 0, 0, m, k, out.shape[1], 1e-5,
         torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"CUDA error {rc}")

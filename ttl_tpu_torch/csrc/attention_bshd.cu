@@ -23,7 +23,7 @@
 // no kernel holds one: the scores stay in registers or in row tiles.
 //
 // Routes, by input type (ttl_bshd_attention_route):
-//   bf16, at every S: the tensor-core bodies of attention_mma.cuh, shared
+//   bf16, at every S and head dims 16, 32, 64 and 128 (AIMv2's): the tensor-core bodies of attention_mma.cuh, shared
 //       with K3/K4: mma.sync for all five products, cp.async rings, scores
 //       and probabilities in registers. A head is a pointer to its row 0,
 //       the row stride H*D and the key limit seq_len (HeadLayout, Geometry),
@@ -37,7 +37,8 @@
 //       statistics in the 3*B*H*S scratch between them; P and dS enter the
 //       tensor cores as hi + lo bf16 terms. No atomics: the same bits every
 //       run.
-//   f32: f32 FMA (TF32 would lose the f32 contract). The forward is
+//   f32, at head dims 16, 32 and 64 (128 takes bf16 alone): f32 FMA (TF32
+//       would lose the f32 contract). The forward is
 //       key-tiled (bshd_fwd_tiled_kernel: K and V stream through shared
 //       memory 64 keys at a time under an online softmax). The backward
 //       keeps a whole head's K and V in shared memory (bshd_bwd_kernel)
@@ -300,15 +301,15 @@ int launch_bwd_tiled(const void* q, const void* k, const void* v,
 // Routes, numbered as ops/attention.py::ROUTES names them.
 enum Route { kRouteTensorCore = 0, kRouteWholeHead = 1, kRouteKeyTiled = 2 };
 
-// The rule: head dims 16, 32 and 64 (multiples of the tensor-core products'
-// depth of 16). bf16 takes the tensor-core bodies at every S; f32 keeps the
-// f32 FMA routes, since TF32 would lose the f32 contract: the key-tiled
-// forward, and backward the whole-head kernel where a head fits shared
-// memory, else the key-tiled pair. -1: no kernel.
+// The rule: head dims 16, 32, 64 and 128 (multiples of the tensor-core
+// products' depth of 16). bf16 takes the tensor-core bodies at every S; f32
+// keeps the f32 FMA routes, since TF32 would lose the f32 contract, at 16,
+// 32 and 64: the key-tiled forward, and backward the whole-head kernel
+// where a head fits shared memory, else the key-tiled pair. -1: no kernel.
 int route_of(int backward, int dtype, int S, int D) {
-  if (D != 16 && D != 32 && D != 64) return -1;
+  if (D != 16 && D != 32 && D != 64 && D != 128) return -1;
   if (dtype == 1) return kRouteTensorCore;
-  if (dtype != 0) return -1;
+  if (dtype != 0 || D == 128) return -1;
   if (!backward) return kRouteKeyTiled;
   const size_t smem = D == 16   ? bwd_smem_bytes<float, 16>(S)
                       : D == 32 ? bwd_smem_bytes<float, 32>(S)
@@ -328,17 +329,18 @@ int fwd_d(int route, const void* q, const void* k, const void* v, void* o,
   if (route == kRouteTensorCore)
     return mma_attention_fwd<D>(q, k, v, o, B * H, 1, bshd_heads(H, g, D), g,
                                 st);
-  return launch_fwd_tiled<float, D>(q, k, v, o, B, H, g, st);
+  if constexpr (D == 128) {
+    return (int)cudaErrorInvalidValue;  // bf16 alone (route_of)
+  } else {
+    return launch_fwd_tiled<float, D>(q, k, v, o, B, H, g, st);
+  }
 }
 
+// the f32 routes of the backward
 template <int D>
-int bwd_d(int route, const void* q, const void* k, const void* v,
-          const void* dout, void* dq, void* dk, void* dv, void* stats, int B,
-          int H, const Geometry& g, cudaStream_t st) {
-  if (route == kRouteTensorCore)
-    return mma_attention_bwd<D>(q, k, v, dout, dq, dk, dv, stats,
-                                (size_t)B * H * g.S, B * H, 1,
-                                bshd_heads(H, g, D), g, st);
+int bwd_f32(int route, const void* q, const void* k, const void* v,
+            const void* dout, void* dq, void* dk, void* dv, void* stats,
+            int B, int H, const Geometry& g, cudaStream_t st) {
   if (route == kRouteKeyTiled)
     return launch_bwd_tiled<float, D>(q, k, v, dout, dq, dk, dv, stats, B, H,
                                       g, st);
@@ -351,6 +353,21 @@ int bwd_d(int route, const void* q, const void* k, const void* v,
       static_cast<float*>(dq), static_cast<float*>(dk),
       static_cast<float*>(dv), g);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int bwd_d(int route, const void* q, const void* k, const void* v,
+          const void* dout, void* dq, void* dk, void* dv, void* stats, int B,
+          int H, const Geometry& g, cudaStream_t st) {
+  if (route == kRouteTensorCore)
+    return mma_attention_bwd<D>(q, k, v, dout, dq, dk, dv, stats,
+                                (size_t)B * H * g.S, B * H, 1,
+                                bshd_heads(H, g, D), g, st);
+  if constexpr (D == 128) {
+    return (int)cudaErrorInvalidValue;  // bf16 alone (route_of)
+  } else {
+    return bwd_f32<D>(route, q, k, v, dout, dq, dk, dv, stats, B, H, g, st);
+  }
 }
 
 }  // namespace
@@ -372,7 +389,9 @@ int ttl_bshd_attention_fwd(const void* q, const void* k, const void* v,
   switch (D) {
     case 16: return fwd_d<16>(route, q, k, v, o, B, H, g, st);
     case 32: return fwd_d<32>(route, q, k, v, o, B, H, g, st);
-    default: return fwd_d<64>(route, q, k, v, o, B, H, g, st);
+    case 64: return fwd_d<64>(route, q, k, v, o, B, H, g, st);
+    case 128: return fwd_d<128>(route, q, k, v, o, B, H, g, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -389,8 +408,12 @@ int ttl_bshd_attention_bwd(const void* q, const void* k, const void* v,
       return bwd_d<16>(route, q, k, v, dout, dq, dk, dv, stats, B, H, g, st);
     case 32:
       return bwd_d<32>(route, q, k, v, dout, dq, dk, dv, stats, B, H, g, st);
-    default:
+    case 64:
       return bwd_d<64>(route, q, k, v, dout, dq, dk, dv, stats, B, H, g, st);
+    case 128:
+      return bwd_d<128>(route, q, k, v, dout, dq, dk, dv, stats, B, H, g, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -58,16 +58,28 @@
 // causal mask, stages and 16-row blocks that lie wholly on the masked side
 // are skipped.
 //
-// Tile heights per geometry (MmaShort, MmaLong, MmaWide, MmaLongBwd; the
-// rule is mma_attention_fwd / _bwd at the end): S <= 32 takes W = 2 warps
-// and stages of 32 rows, so that the text towers' short heads are not paid
-// a 64-row tile half empty. Longer heads take stages of 64 rows in the
-// forward, with W = 8 (128 query rows a block) where 128-row tiles cover S
-// with no more padding than 64-row ones (an even number of 64-row tiles:
-// 197, 208, 577, 592 tokens), else W = 4 (64, 257, 272); and W = 4 with
-// stages of 32 rows in the backward, whose kernels hold two accumulator
-// tiles and two score blocks a lane: at 64 rows a stage they need 200 to 212
-// registers a lane and two blocks fit an SM.
+// Tile heights per geometry (MmaShort, MmaLong, MmaWide, MmaLongBwd,
+// MmaD128; the rule is mma_attention_fwd / _bwd at the end): S <= 32 takes
+// W = 2 warps and stages of 32 rows, so that the text towers' short heads
+// are not paid a 64-row tile half empty. Longer heads take stages of 64
+// rows in the forward, with W = 8 (128 query rows a block) where 128-row
+// tiles cover S with no more padding than 64-row ones (an even number of
+// 64-row tiles: 197, 208, 577, 592 tokens), else W = 4 (64, 257, 272); and
+// W = 4 with stages of 32 rows in the backward, whose kernels hold two
+// accumulator tiles and two score blocks a lane: at 64 rows a stage they
+// need 200 to 212 registers a lane and two blocks fit an SM.
+//
+// Head dim 128 (AIMv2's) doubles every fragment and accumulator tile of a
+// lane: an O tile is 64 registers, a resident A operand 32. The forward
+// still holds Q's fragments, on its own rule (MmaD128, mma_attention_fwd):
+// W = 4 and stages of 32 keys at every S past 32, 12 % faster at AIMv2-L/14's
+// [512, 256, 8 x 128] than stages of 64 (whose 32 score registers a lane
+// took it to 180) and than W = 8 (tools/torch_attention_tiles.py, PERF.md).
+// The backward's kernels would hold two A operands and two accumulator
+// tiles, 192 registers before the scores: at D = 128 they read the resident
+// tile's fragments from shared memory at each k step instead
+// (mma_frags_held), one ldmatrix more a product, with stages of 32 rows as
+// at 64.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,6 +139,11 @@ __device__ __forceinline__ void stage_tile(bf16* dst,
   }
 }
 
+// Whether the backward's kernels hold their resident tiles' A fragments in
+// registers for a whole head (D <= 64), or read them from the staged tile at
+// each k step (D = 128, see the top).
+__host__ __device__ constexpr bool mma_frags_held(int D) { return D <= 64; }
+
 // The A fragments of the warp's 16 rows of a staged tile (tile_w: its row 0).
 template <int D>
 __device__ __forceinline__ void load_a_frags(unsigned (&a)[D / 16][4],
@@ -152,6 +169,27 @@ __device__ __forceinline__ void mma_a_rows_t(float (&acc0)[4],
     ldmatrix_x4(b, base + 2u * kk * 16);
     mma_bf16(acc0, a[kk], b[0], b[1]);
     mma_bf16(acc1, a[kk], b[2], b[3]);
+  }
+}
+
+// mma_a_rows_t with a's fragments read from the warp's 16 staged rows at
+// tile_w at each k step, where they are not held in registers
+template <int D>
+__device__ __forceinline__ void mma_staged_rows_t(float (&acc0)[4],
+                                                  float (&acc1)[4],
+                                                  const bf16* tile_w,
+                                                  const bf16* rows, int lane) {
+  const unsigned a_base =
+      smem_addr(tile_w + (lane % 16) * (D + 8) + (lane / 16) * 8);
+  const unsigned base = smem_addr(
+      rows + ((lane % 8) + (lane / 16) * 8) * (D + 8) + ((lane / 8) % 2) * 8);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    unsigned a[4], b[4];
+    ldmatrix_x4(a, a_base + 2u * kk * 16);
+    ldmatrix_x4(b, base + 2u * kk * 16);
+    mma_bf16(acc0, a, b[0], b[1]);
+    mma_bf16(acc1, a, b[2], b[3]);
   }
 }
 
@@ -423,7 +461,8 @@ mma_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
   };
 
-  unsigned qa[D / 16][4], da[D / 16][4];
+  constexpr bool kHeld = mma_frags_held(D);
+  unsigned qa[kHeld ? D / 16 : 1][4], da[kHeld ? D / 16 : 1][4];
   float acc_a[D / 8][4], acc_b[D / 8][4];  // sum e dP K and sum e K
   float m_run[2], l_run[2], r_run[2];      // l, r: this lane's share
   float shift[2];                          // the rows' dP at key 0
@@ -436,9 +475,12 @@ mma_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int h = i / nst, s = i % nst;
     if (!active) continue;
     bf16* q_w = qs + (h % copies) * M * LD + warp * 16 * LD;
+    const bf16* do_w = dos + (h % copies) * M * LD + warp * 16 * LD;
     if (s == 0) {
-      load_a_frags<D>(qa, q_w, lane);
-      load_a_frags<D>(da, dos + (h % copies) * M * LD + warp * 16 * LD, lane);
+      if constexpr (kHeld) {
+        load_a_frags<D>(qa, q_w, lane);
+        load_a_frags<D>(da, do_w, lane);
+      }
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
 #pragma unroll
@@ -457,9 +499,14 @@ mma_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int c = 0; c < 4; ++c) sc[j][c] = 0.f;
 #pragma unroll
       for (int b = 0; b < KT / 16; ++b)
-        if (key0 + b * 16 < kend_w)
-          mma_a_rows_t<D>(sc[2 * b], sc[2 * b + 1], qa, k_st + b * 16 * LD,
-                          lane);
+        if (key0 + b * 16 < kend_w) {
+          if constexpr (kHeld)
+            mma_a_rows_t<D>(sc[2 * b], sc[2 * b + 1], qa, k_st + b * 16 * LD,
+                            lane);
+          else
+            mma_staged_rows_t<D>(sc[2 * b], sc[2 * b + 1], q_w,
+                                 k_st + b * 16 * LD, lane);
+        }
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int j = 0; j < KT / 8; ++j)
@@ -494,7 +541,11 @@ mma_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           for (int jj = 0; jj < 2; ++jj)
 #pragma unroll
             for (int c = 0; c < 4; ++c) dp[jj][c] = 0.f;
-          mma_a_rows_t<D>(dp[0], dp[1], da, v_st + b * 16 * LD, lane);
+          if constexpr (kHeld)
+            mma_a_rows_t<D>(dp[0], dp[1], da, v_st + b * 16 * LD, lane);
+          else
+            mma_staged_rows_t<D>(dp[0], dp[1], do_w, v_st + b * 16 * LD,
+                                 lane);
           if (s == 0 && b == 0) {
             // key 0 sits in lane 4 * gq of each quad: (gq, 0) and (gq + 8, 0)
             shift[0] = __shfl_sync(0xffffffffu, dp[0][0], lane & ~3);
@@ -606,7 +657,8 @@ mma_bwd_keys_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
   };
 
-  unsigned ka[D / 16][4], va[D / 16][4];
+  constexpr bool kHeld = mma_frags_held(D);
+  unsigned ka[kHeld ? D / 16 : 1][4], va[kHeld ? D / 16 : 1][4];
   float acc_dk[D / 8][4], acc_dv[D / 8][4];
 
   for (int i = 0; i < NS - 1; ++i) stage(i);
@@ -619,8 +671,10 @@ mma_bwd_keys_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* k_w = kt + (h % copies) * M * LD + warp * 16 * LD;
     bf16* v_w = vt + (h % copies) * M * LD + warp * 16 * LD;
     if (i % nst == 0) {
-      load_a_frags<D>(ka, k_w, lane);
-      load_a_frags<D>(va, v_w, lane);
+      if constexpr (kHeld) {
+        load_a_frags<D>(ka, k_w, lane);
+        load_a_frags<D>(va, v_w, lane);
+      }
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
 #pragma unroll
@@ -640,8 +694,13 @@ mma_bwd_keys_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int jj = 0; jj < 2; ++jj)
 #pragma unroll
         for (int c = 0; c < 4; ++c) sc[jj][c] = dp[jj][c] = 0.f;
-      mma_a_rows_t<D>(sc[0], sc[1], ka, q_st + b * 16 * LD, lane);
-      mma_a_rows_t<D>(dp[0], dp[1], va, do_st + b * 16 * LD, lane);
+      if constexpr (kHeld) {
+        mma_a_rows_t<D>(sc[0], sc[1], ka, q_st + b * 16 * LD, lane);
+        mma_a_rows_t<D>(dp[0], dp[1], va, do_st + b * 16 * LD, lane);
+      } else {
+        mma_staged_rows_t<D>(sc[0], sc[1], k_w, q_st + b * 16 * LD, lane);
+        mma_staged_rows_t<D>(dp[0], dp[1], v_w, do_st + b * 16 * LD, lane);
+      }
       unsigned p_hi[4], p_lo[4], s_hi[4], s_lo[4];
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj) {
@@ -685,6 +744,7 @@ struct MmaShort { static constexpr int kW = 2, kKT = 32, kNS = 2; };  // S <= 32
 struct MmaLong { static constexpr int kW = 4, kKT = 64, kNS = 2; };
 struct MmaWide { static constexpr int kW = 8, kKT = 64, kNS = 2; };
 struct MmaLongBwd { static constexpr int kW = 4, kKT = 32, kNS = 2; };
+struct MmaD128 { static constexpr int kW = 4, kKT = 32, kNS = 2; };  // fwd
 constexpr int kMmaShortMax = 32;
 
 // The forward's 128-row tiles pad S no more than 64-row ones do.
@@ -746,9 +806,13 @@ int mma_attention_fwd(const void* q, const void* k, const void* v, void* o,
                       const Geometry& g, cudaStream_t st) {
   if (g.S <= kMmaShortMax)
     return mma_launch_fwd<D, MmaShort>(q, k, v, o, groups, nh, hl, g, st);
-  if (mma_wide_fwd(g.S))
-    return mma_launch_fwd<D, MmaWide>(q, k, v, o, groups, nh, hl, g, st);
-  return mma_launch_fwd<D, MmaLong>(q, k, v, o, groups, nh, hl, g, st);
+  if constexpr (D == 128) {
+    return mma_launch_fwd<D, MmaD128>(q, k, v, o, groups, nh, hl, g, st);
+  } else {
+    if (mma_wide_fwd(g.S))
+      return mma_launch_fwd<D, MmaWide>(q, k, v, o, groups, nh, hl, g, st);
+    return mma_launch_fwd<D, MmaLong>(q, k, v, o, groups, nh, hl, g, st);
+  }
 }
 
 template <int D>

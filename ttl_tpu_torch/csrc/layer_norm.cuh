@@ -5,6 +5,8 @@
 //          or rsqrt(max(sum_k x_k^2 / K - mu^2, 0) + eps) where the variance
 //          is E[x^2] - mu^2, TTL_LN_STATS=ex2)
 //   y_k  = ((x_k - mu) * rstd) * scale_k + bias_k
+// or, with RMS statistics (an RMSNorm: AIMv2's), mu taken as 0 and no bias:
+//   rstd = rsqrt(sum_k x_k^2 / K + eps),   y_k = (x_k * rstd) * scale_k
 // with the multiply and the add of the affine separate, correctly rounded
 // operations (no contraction into an FMA), as the chain of elementwise
 // tensor operations of models/clip.py::layer_norm rounds them; the caller
@@ -43,6 +45,13 @@ __device__ __forceinline__ float ln_rstd_ex2(float sq_sum, float mu, float k,
 __device__ __forceinline__ float ln_affine(float v, float mu, float rstd,
                                            float scale, float bias) {
   return __fadd_rn(__fmul_rn(__fmul_rn(v - mu, rstd), scale), bias);
+}
+
+// the RMS statistics' affine: (v * rstd) * scale, rounded apart; rstd is
+// ln_rstd of the sum of the squares (the deviations from a mean of 0)
+__device__ __forceinline__ float rms_affine(float v, float rstd,
+                                            float scale) {
+  return __fmul_rn(__fmul_rn(v, rstd), scale);
 }
 
 }  // namespace

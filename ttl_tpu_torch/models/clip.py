@@ -38,8 +38,14 @@ is written once. A vision config names its architecture
 (`VisionConfig.tower`), and `TOWERS` maps the name to a `ViTTower`: its
 embedding, its block, its head, its weight draw, and whether its adapted
 window is recomputed in the backward, it takes the int8 prefix and a
-checkpoint converter reads it. CLIP's row is here; `models/eva02.py` adds
-EVA02's.
+checkpoint converter reads it, and whether its tokens begin with a class
+token (`VisionConfig.seq_len` reads it). CLIP's row is here;
+`models/eva02.py` adds EVA02's and `models/aimv2.py` AIMv2's. The text
+tower has one skeleton too (`text_features`,
+`text_features_from_embeddings`): a text config names its architecture
+(`TextConfig.tower`), and `TEXT_TOWERS` maps it to a `TextTower` (its
+causal block, its final norm and its weight draw); CLIP's row takes the
+activation `TextConfig.act` names, AIMv2's is its own block.
 
 The skeleton decides once, in `vision_prefix`, whether the frozen layers
 fold each layernorm into the linears behind it (`encoder_layer`'s `fold`,
@@ -119,7 +125,9 @@ class VisionConfig(TowerConfig):
 
     @property
     def seq_len(self) -> int:
-        return self.grid * self.grid + 1
+        """The patch tokens, and the class token where the tower has one
+        (`ViTTower.class_token`)."""
+        return self.grid * self.grid + int(TOWERS[self.tower].class_token)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,6 +137,8 @@ class TextConfig(TowerConfig):
     # the MLP's activation, a key of ACTIVATIONS: a class constant, so that
     # the fields stay the JAX package's TextConfig's
     act: ClassVar[str] = "quick_gelu"
+    # the architecture, a key of TEXT_TOWERS
+    tower: ClassVar[str] = "clip"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -415,7 +425,7 @@ class ViTTower(NamedTuple):
     embed: Callable
     # (layer, x, cfg, *, lora, lora_scale, seq_len, fold) -> x
     block: Callable
-    # (p, x, cfg) -> features [B, proj_dim] f32 of x's class token
+    # (p, x, cfg) -> features [B, proj_dim] f32, pooled from x
     head: Callable
     # (gen, cfg) -> the tower's weights on the host
     init: Callable
@@ -428,13 +438,29 @@ class ViTTower(NamedTuple):
     # (host weights, cfg) -> the weights as a CUDA device holds them, where
     # they differ (EVA02's padded MLP, `models/eva02.py::card_layout`)
     card_layout: Optional[Callable] = None
+    # the tokens begin with a class token (AIMv2's pool all of them)
+    class_token: bool = True
+    # its layers may be split over a model axis (`parallel/mesh.py`)
+    model_axis: bool = True
 
 
-def patch_tokens(p: Params, images: torch.Tensor, cfg: VisionConfig,
-                 compute_dtype, bias: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
-    """Patchify, the patch product in f32 (plus `bias` in f32, rounded
-    once), then the class token and the positions: [B, S, D]."""
+class TextTower(NamedTuple):
+    """A text architecture's pieces, under the name its text config gives
+    (`TextConfig.tower`); `text_features` and
+    `text_features_from_embeddings` are the skeleton around them."""
+    # (layer, x, cfg, *, lora, lora_scale) -> x, causal
+    block: Callable
+    # (x, p, cfg) -> x normalised before the end-of-text row is read
+    final_norm: Callable
+    # (gen, cfg) -> the tower's weights on the host
+    init: Callable
+
+
+def patch_embedding(p: Params, images: torch.Tensor, cfg: VisionConfig,
+                    compute_dtype, bias: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Patchify, the patch product in f32 (plus `bias` in f32), rounded
+    once: [B, grid^2, D]."""
     b = images.shape[0]
     g, pt = cfg.grid, cfg.patch
     x = images.to(compute_dtype)
@@ -443,8 +469,17 @@ def patch_tokens(p: Params, images: torch.Tensor, cfg: VisionConfig,
     x = mm_f32(x, p["patch_embed"].to(compute_dtype))
     if bias is not None:
         x = x + bias.float()
-    x = x.to(compute_dtype)
-    cls = p["class_embed"].to(compute_dtype).expand(b, 1, cfg.hidden)
+    return x.to(compute_dtype)
+
+
+def patch_tokens(p: Params, images: torch.Tensor, cfg: VisionConfig,
+                 compute_dtype, bias: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """`patch_embedding`, then the class token and the positions: [B, S,
+    D]."""
+    x = patch_embedding(p, images, cfg, compute_dtype, bias)
+    cls = p["class_embed"].to(compute_dtype).expand(x.shape[0], 1,
+                                                    cfg.hidden)
     return torch.cat([cls, x], dim=1) + p["pos_embed"].to(compute_dtype)
 
 
@@ -542,10 +577,10 @@ def encode_image(p: Params, images: torch.Tensor, vision_cfg, *,
 
 def _pool_eot(x: torch.Tensor, tokens: torch.Tensor, p: Params,
               cfg: TextConfig) -> torch.Tensor:
-    """ln_final, the EOT row (the largest id) of every prompt, and the f32
-    projection. x is [N, ctx', D] with N a multiple of the C rows of
-    `tokens`: the table repeats along N."""
-    x = layer_norm(x, p["ln_final"], cfg.ln_eps)
+    """The tower's final norm, the EOT row (the largest id) of every
+    prompt, and the f32 projection. x is [N, ctx', D] with N a multiple of
+    the C rows of `tokens`: the table repeats along N."""
+    x = TEXT_TOWERS[cfg.tower].final_norm(x, p, cfg)
     eot = tokens.argmax(dim=-1).repeat(x.shape[0] // tokens.shape[0])
     pooled = x[torch.arange(x.shape[0], device=x.device), eot]
     return mm_f32(pooled, p["proj"])
@@ -564,22 +599,22 @@ def text_features(p: Params, tokens: torch.Tensor, cfg: TextConfig, *,
     [L, ...] (one set) or [S, L, ...] (one set per sample): then the frozen
     layers run once, their output repeats S times, and the features come out
     as [S*C, proj_dim], sample-major."""
+    block = TEXT_TOWERS[cfg.tower].block
     x = p["token_embed"][tokens].to(compute_dtype)
     x = x + p["pos_embed"][: x.shape[1]].to(compute_dtype)
-    run = dict(heads=cfg.heads, eps=cfg.ln_eps, causal=True, act=cfg.act)
     if adapters is None:
-        x = _run_layers(p["layers"], x, 0, cfg.layers, encoder_layer, **run)
+        x = _run_layers(p["layers"], x, 0, cfg.layers, block, cfg=cfg)
         return _pool_eot(x, tokens, p, cfg)
     lo, hi = adapter_window
     with torch.no_grad():
-        x = _run_layers(p["layers"], x, 0, lo, encoder_layer, **run)
+        x = _run_layers(p["layers"], x, 0, lo, block, cfg=cfg)
     a = adapters["q"]["A"]
     if a.dim() == 4:
         x = x.repeat(a.shape[0], 1, 1)
-    x = _run_layers(p["layers"], x, lo, hi + 1, encoder_layer,
-                    adapters=adapters, lora_scale=lora_scale, **run)
-    x = _run_layers(p["layers"], x, hi + 1, cfg.layers, encoder_layer,
-                    remat=True, **run)
+    x = _run_layers(p["layers"], x, lo, hi + 1, block, adapters=adapters,
+                    lora_scale=lora_scale, cfg=cfg)
+    x = _run_layers(p["layers"], x, hi + 1, cfg.layers, block, remat=True,
+                    cfg=cfg)
     return _pool_eot(x, tokens, p, cfg)
 
 
@@ -595,9 +630,8 @@ def text_features_from_embeddings(p: Params, embeddings: torch.Tensor,
     probabilities of all layers would otherwise stay alive together."""
     x = embeddings.to(compute_dtype) \
         + p["pos_embed"][: embeddings.shape[1]].to(compute_dtype)
-    x = _run_layers(p["layers"], x, 0, cfg.layers, encoder_layer,
-                    heads=cfg.heads, eps=cfg.ln_eps, causal=True,
-                    remat=remat, act=cfg.act)
+    x = _run_layers(p["layers"], x, 0, cfg.layers,
+                    TEXT_TOWERS[cfg.tower].block, remat=remat, cfg=cfg)
     return _pool_eot(x, tokens, p, cfg)
 
 
@@ -653,7 +687,8 @@ def init_clip_params(cfg: CLIPConfig, gen: torch.Generator, *,
     parameters and logit_scale stay f32, every other leaf is param_dtype;
     a ResNet tower keeps its batchnorms and attention pool in f32
     (`init_resnet_params`); a ViT tower is drawn by its `ViTTower.init`,
-    and laid out on a CUDA device by its `card_layout` where it has one."""
+    and laid out on a CUDA device by its `card_layout` where it has one;
+    the text tower by its `TextTower.init`."""
     v, t = cfg.vision, cfg.text
     if isinstance(v, ResNetVisionConfig):
         vision = init_resnet_params(v, gen, device=device,
@@ -664,13 +699,7 @@ def init_clip_params(cfg: CLIPConfig, gen: torch.Generator, *,
         if tower.card_layout and torch.device(device).type == "cuda":
             vision = tower.card_layout(vision, v)
         vision = _placed(vision, device, param_dtype)
-    text = {
-        "token_embed": _normal(gen, (t.vocab, t.hidden), 0.02),
-        "pos_embed": _normal(gen, (t.ctx, t.hidden), 0.01),
-        "layers": _init_layers(gen, t.layers, t.hidden, t.mlp_ratio),
-        "ln_final": _init_ln(t.hidden),
-        "proj": _normal(gen, (t.hidden, t.proj_dim), 0.02),
-    }
+    text = TEXT_TOWERS[t.tower].init(gen, t)
     return {"vision": vision,
             "text": _placed(text, device, param_dtype),
             "logit_scale": torch.tensor(math.log(1.0 / 0.07),
@@ -706,10 +735,36 @@ def _clip_head(p: Params, x: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
     return mm_f32(layer_norm(x[:, 0], p["ln_post"], cfg.ln_eps), p["proj"])
 
 
-# every ViT architecture under its VisionConfig.tower; a tower's module adds
-# its own row (`models/eva02.py`)
+def _init_clip_text(gen: torch.Generator, t: TextConfig) -> Params:
+    return {
+        "token_embed": _normal(gen, (t.vocab, t.hidden), 0.02),
+        "pos_embed": _normal(gen, (t.ctx, t.hidden), 0.01),
+        "layers": _init_layers(gen, t.layers, t.hidden, t.mlp_ratio),
+        "ln_final": _init_ln(t.hidden),
+        "proj": _normal(gen, (t.hidden, t.proj_dim), 0.02),
+    }
+
+
+def _clip_text_block(p: Params, x: torch.Tensor, cfg: TextConfig,
+                     **kw) -> torch.Tensor:
+    return encoder_layer(p, x, heads=cfg.heads, eps=cfg.ln_eps, causal=True,
+                         act=cfg.act, **kw)
+
+
+def _clip_final_norm(x: torch.Tensor, p: Params,
+                     cfg: TextConfig) -> torch.Tensor:
+    return layer_norm(x, p["ln_final"], cfg.ln_eps)
+
+
+# every ViT architecture under its VisionConfig.tower, and every text one
+# under its TextConfig.tower; a tower's module adds its own rows
+# (`models/eva02.py`, `models/aimv2.py`)
 TOWERS: Dict[str, ViTTower] = {
     "clip": ViTTower(embed=_clip_embed, block=_clip_block, head=_clip_head,
                      init=_init_vit_vision, remat_window=False, int8=True,
                      converter=True),
+}
+TEXT_TOWERS: Dict[str, TextTower] = {
+    "clip": TextTower(block=_clip_text_block, final_norm=_clip_final_norm,
+                      init=_init_clip_text),
 }

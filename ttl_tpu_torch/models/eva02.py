@@ -62,8 +62,9 @@ The row asks for the adapted layers to be recomputed in the backward
 (`remat_window`), so a step runs their forward twice.
 
 Not supported on this tower, each raising ValueError: the int8 prefix
-(`ops/quant.py::quant_prefix_len`), a model axis (a layer whose o holds a
-rank's rows) and `--checkpoint_path` (`models/convert.py`).
+(`ops/quant.py::quant_prefix_len`), a model axis (`--mesh_shape d,m`,
+m > 1: `runner.check_model_axis`) and `--checkpoint_path`
+(`models/convert.py`).
 """
 from __future__ import annotations
 
@@ -147,9 +148,6 @@ def eva_layer(p: Params, x: torch.Tensor, cfg: EVA02VisionConfig, *,
     gradient). This block has never honoured CoCoOp's "f32" request: under
     it the block folds as the skeleton would without it."""
     d, eps = x.shape[-1], cfg.ln_eps
-    if p["o"]["w"].shape[-2] != d:
-        raise ValueError("the model axis (--mesh_shape d,m with m > 1) is "
-                         "not supported on the EVA02 vision tower")
     if fold == "f32":
         fold = ("linear" if _frozen(p, x) and ln_stats_mode() == "centered"
                 else None)
@@ -233,4 +231,5 @@ def init_vision(gen: torch.Generator, v: EVA02VisionConfig) -> Params:
 # recomputed in the backward a step peaks at 19.8 GB on an H100.
 TOWERS["eva02"] = ViTTower(embed=_embed, block=eva_layer, head=_head,
                            init=init_vision, remat_window=True, int8=False,
-                           converter=False, card_layout=card_layout)
+                           converter=False, card_layout=card_layout,
+                           model_axis=False)

@@ -150,7 +150,7 @@ def library() -> ctypes.CDLL:
     lib.ttl_quant_matmul.restype = i
     lib.ttl_quant_matmul_scratch_bytes.argtypes = [i, i, i]
     lib.ttl_quant_matmul_scratch_bytes.restype = ll
-    lib.ttl_ln_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, p]
+    lib.ttl_ln_matmul.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, p]
     lib.ttl_ln_matmul.restype = i
     lib.ttl_ln_matmul_max_k.argtypes = [i]
     lib.ttl_ln_matmul_max_k.restype = i
@@ -161,7 +161,7 @@ def library() -> ctypes.CDLL:
     lib.ttl_layer_norm_fwd.argtypes = [p, p, p, p, p, p, i, ll, i, i, f, i,
                                         p]
     lib.ttl_layer_norm_fwd.restype = i
-    lib.ttl_layer_norm_bwd.argtypes = [p, p, p, p, p, p, i, ll, i, i, p]
+    lib.ttl_layer_norm_bwd.argtypes = [p, p, p, p, p, p, i, ll, i, i, i, p]
     lib.ttl_layer_norm_bwd.restype = i
     lib.ttl_cuda_error_string.argtypes = [i]
     lib.ttl_cuda_error_string.restype = ctypes.c_char_p

@@ -49,7 +49,12 @@ import torch
 from . import _build
 
 MASK_VALUE = -1e9
-KERNEL_HEAD_DIMS = (16, 32, 64)
+# K1/K2's head dims by dtype; 128 (AIMv2's) on the bf16 tensor-core route
+# alone
+KERNEL_HEAD_DIMS = {torch.bfloat16: (16, 32, 64, 128),
+                    torch.float32: (16, 32, 64)}
+# K3/K4's
+BHSD_HEAD_DIMS = (16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -231,8 +236,9 @@ def _check_kernel_args(tensors, heads: int, seq_len: int) -> int:
     if heads <= 0 or hd % heads:
         raise ValueError(f"H*D={hd} is not divisible by heads={heads}")
     d = hd // heads
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {KERNEL_HEAD_DIMS}")
+    if d not in KERNEL_HEAD_DIMS[q.dtype]:
+        raise ValueError(f"head dim {d} not in {KERNEL_HEAD_DIMS[q.dtype]} "
+                         f"for {q.dtype}")
     if not 0 < seq_len <= s:
         raise ValueError(f"seq_len={seq_len} outside (0, {s}]")
     return d
@@ -350,8 +356,8 @@ def _check_bhsd_args(tensors) -> None:
             raise ValueError(f"shape mismatch: {tuple(t.shape)} vs "
                              f"{tuple(q.shape)}")
         _check_bhsd_layout(t)
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} not in {KERNEL_HEAD_DIMS}")
+    if q.shape[-1] not in BHSD_HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} not in {BHSD_HEAD_DIMS}")
     if min(q.shape) < 1:
         raise ValueError(f"empty tensor {tuple(q.shape)}")
 

@@ -17,13 +17,21 @@ epilogue:
   ops round. This is the function of `layer_norm` -> `linear` (->
   `quick_gelu`); only the order of the product's sums differs on the card.
 
+`stats="rms"` takes the RMS statistics of an RMSNorm in place of the
+layernorm (AIMv2's, `models/aimv2.py`): h = (x * rsqrt(mean(x^2) + eps)) *
+scale, rounded once, the function of `ops.layer_norm`'s "rms" code; there
+is no layernorm bias (`ln_bias` None), and it comes with the "linear"
+epilogue alone. A linear without a bias (`b` None) is run as one with a
+zero bias: T(T(acc) + 0) is T(acc).
+
 `ln_matmul` dispatches on the device of x. A CPU tensor takes
 `ln_matmul_plain`. A CUDA tensor launches K6, the hand-written kernel in
 `csrc/ln_matmul.cu`, which keeps the normalised x in shared memory; anything
 the kernel does not take raises. `ln_matmul.launches` grows by one at each
 kernel launch, `ln_matmul.linear_launches` at each launch with the "linear"
-epilogue. There is no backward: its callers are the frozen vision tower of
-the CoCoOp step (`models.clip.encode_image(fold="f32")`, "f32") and the
+epilogue, `ln_matmul.rms_launches` at each launch with the RMS statistics.
+There is no backward: its callers are the frozen vision tower of the CoCoOp
+step (`models.clip.encode_image(fold="f32")`, "f32") and the
 frozen prefix wherever no gradient reaches it
 (`models.clip.vision_prefix`, "linear"); `models.clip.encoder_layer`'s
 `fold` names the epilogue.
@@ -37,48 +45,67 @@ from . import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the C interface's epilogue codes, by (epilogue, quick_gelu)
 _EPILOGUES = {("f32", False): 0, ("linear", False): 1, ("linear", True): 2}
+_STATS_CODES = {"centered": 0, "rms": 1}
 
 
-def _epilogue_code(epilogue: str, quick_gelu: bool) -> int:
+def _epilogue_code(epilogue: str, quick_gelu: bool,
+                   stats: str = "centered") -> int:
     code = _EPILOGUES.get((epilogue, bool(quick_gelu)))
     if code is None:
         raise ValueError(f"K6 epilogue: 'f32' or 'linear' (quick_gelu only "
                          f"with 'linear'), got {epilogue!r}, quick_gelu="
                          f"{quick_gelu}")
+    if stats not in _STATS_CODES:
+        raise ValueError(f"K6 stats: one of {tuple(_STATS_CODES)}, got "
+                         f"{stats!r}")
+    if stats == "rms" and code != 1:
+        raise ValueError("K6's RMS statistics come with the 'linear' "
+                         "epilogue alone, without quick_gelu")
     return code
 
 
-def ln_matmul_plain(x: torch.Tensor, ln_scale: torch.Tensor,
-                    ln_bias: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                    eps: float = 1e-5, epilogue: str = "f32",
-                    quick_gelu: bool = False) -> torch.Tensor:
+def ln_matmul_plain(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias,
+                    w: torch.Tensor, b, eps: float = 1e-5,
+                    epilogue: str = "f32", quick_gelu: bool = False,
+                    stats: str = "centered") -> torch.Tensor:
     """Plain PyTorch version of K6, step by step as the kernel (and the
     Pallas kernel it replaces) computes: products of values in x's dtype are
     exact in f32, so the f32 matmul of the upcast operands is the f32
     accumulation. The "linear" epilogue is written as `models.clip.linear`
-    and `quick_gelu` compute it, so that a CPU tensor gets their bits."""
-    _epilogue_code(epilogue, quick_gelu)
+    and `quick_gelu` compute it, so that a CPU tensor gets their bits; so is
+    the RMS statistics' prologue as `ops.layer_norm.layer_norm_plain`'s, and
+    a `b` of None adds nothing, as `linear` without a bias."""
+    _epilogue_code(epilogue, quick_gelu, stats)
     x32 = x.float()
-    mu = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
-    h = ((x32 - mu) * torch.rsqrt(var + eps) * ln_scale.float()
-         + ln_bias.float()).to(x.dtype)
+    if stats == "rms":
+        rstd = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+        h = ((x32 * rstd) * ln_scale.float()).to(x.dtype)
+    else:
+        mu = x32.mean(dim=-1, keepdim=True)
+        var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+        h = ((x32 - mu) * torch.rsqrt(var + eps) * ln_scale.float()
+             + ln_bias.float()).to(x.dtype)
     if epilogue == "f32":
         acc = torch.matmul(h.float(), w.to(x.dtype).float())
         return (acc + b.float()).to(x.dtype)
-    y = torch.matmul(h, w.to(x.dtype)) + b.to(x.dtype)
+    y = torch.matmul(h, w.to(x.dtype))
+    if b is not None:
+        y = y + b.to(x.dtype)
     return y * torch.sigmoid(1.702 * y) if quick_gelu else y
 
 
-def ln_matmul_cuda(x: torch.Tensor, ln_scale: torch.Tensor,
-                   ln_bias: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                   eps: float = 1e-5, epilogue: str = "f32",
-                   quick_gelu: bool = False) -> torch.Tensor:
+def ln_matmul_cuda(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias,
+                   w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5,
+                   epilogue: str = "f32", quick_gelu: bool = False,
+                   stats: str = "centered") -> torch.Tensor:
     """Launch K6 on the current stream: x [M, K] and w [K, N] bf16 or f32
-    (one dtype), ln_scale and ln_bias [K] f32, b [N] f32 under the "f32"
-    epilogue and in x's dtype under "linear" -> [M, N] in x's dtype. K and
-    N are multiples of 16."""
-    code = _epilogue_code(epilogue, quick_gelu)
+    (one dtype), ln_scale and ln_bias [K] f32 (ln_bias not read, and may be
+    None, under stats="rms"), b [N] f32 under the "f32" epilogue and in x's
+    dtype under "linear" -> [M, N] in x's dtype. K and N are multiples of
+    16."""
+    code = _epilogue_code(epilogue, quick_gelu, stats)
+    if ln_bias is None:
+        ln_bias = ln_scale          # not read under the RMS statistics
     if x.dim() != 2 or w.dim() != 2:
         raise ValueError(f"K6: expected x [M, K] and w [K, N], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -117,35 +144,44 @@ def ln_matmul_cuda(x: torch.Tensor, ln_scale: torch.Tensor,
     out = torch.empty(m, n, dtype=x.dtype, device=x.device)
     rc = lib.ttl_ln_matmul(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w.data_ptr(),
-        b.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype], code, m, k, n,
-        float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+        b.data_ptr(), out.data_ptr(), _DTYPE_CODES[x.dtype], code,
+        _STATS_CODES[stats], m, k, n, float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, f"ln_matmul at M={m}, K={k}, N={n}, {x.dtype}, "
-                     f"epilogue {epilogue}{' + quick_gelu' * quick_gelu}")
+                     f"epilogue {epilogue}{' + quick_gelu' * quick_gelu}, "
+                     f"{stats}")
     ln_matmul.launches += 1
     ln_matmul.linear_launches += code != 0
+    ln_matmul.rms_launches += stats == "rms"
     return out
 
 
-def ln_matmul(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
-              w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5,
-              epilogue: str = "f32", quick_gelu: bool = False) -> torch.Tensor:
+def ln_matmul(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias,
+              w: torch.Tensor, b, eps: float = 1e-5, epilogue: str = "f32",
+              quick_gelu: bool = False,
+              stats: str = "centered") -> torch.Tensor:
     """out = layer_norm(x) @ w + b for x [..., K], with the epilogue the
     caller names (see the module): the plain version for a CPU tensor, K6
     for a CUDA tensor. w is taken in x's dtype and row-major, the
     layernorm's vectors in f32 and b in the epilogue's dtype, converted here
     when the parameters are stored otherwise (a checkpoint's transposed
-    weights are copied each call)."""
+    weights are copied each call). stats="rms": the RMSNorm's statistics,
+    `ln_bias` None; `b` None: no bias."""
     if x.device.type == "cpu":
         return ln_matmul_plain(x, ln_scale, ln_bias, w, b, eps, epilogue,
-                               quick_gelu)
+                               quick_gelu, stats)
     if x.device.type != "cuda":
         raise ValueError(f"no fused layernorm + linear for device {x.device}")
-    b = b.float() if epilogue == "f32" else b.to(x.dtype)
+    dtype = torch.float32 if epilogue == "f32" else x.dtype
+    b = (torch.zeros(w.shape[-1], dtype=dtype, device=x.device) if b is None
+         else b.to(dtype))
     out = ln_matmul_cuda(x.reshape(-1, x.shape[-1]), ln_scale.float(),
-                         ln_bias.float(), w.to(x.dtype).contiguous(), b, eps,
-                         epilogue, quick_gelu)
+                         None if ln_bias is None else ln_bias.float(),
+                         w.to(x.dtype).contiguous(), b, eps, epilogue,
+                         quick_gelu, stats)
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
 ln_matmul.launches = 0
 ln_matmul.linear_launches = 0
+ln_matmul.rms_launches = 0

@@ -62,8 +62,8 @@ from .config import TTLConfig, resolve_layer_range
 from .data.classnames import resolve_classnames
 from .data.registry import build_dataset, dataset_exists, expected_subdir
 from .data.views import DEFAULT_CANVAS, SampleLoader
-from .models.clip import (VisionConfig, init_clip_params, l2_normalize,
-                          lora_compute_mode, ln_stats_mode,
+from .models.clip import (TOWERS, VisionConfig, init_clip_params,
+                          l2_normalize, lora_compute_mode, ln_stats_mode,
                           text_features_from_embeddings)
 from .models.convert import load_checkpoint, params_from_numpy
 from .models.prompts import (build_ensemble_classifier, build_text_classifier,
@@ -94,6 +94,7 @@ def load_model(cfg: TTLConfig, device):
         raise ValueError(f"prefix_quant={cfg.prefix_quant!r}: expected "
                          "'none' or 'int8'")
     clip_cfg = get_arch(cfg.arch)
+    check_model_axis(clip_cfg, cfg.mesh_shape)
     pdtype = (torch.bfloat16 if cfg.param_dtype == "bfloat16"
               else torch.float32)
     if cfg.checkpoint_path:
@@ -108,6 +109,18 @@ def load_model(cfg: TTLConfig, device):
         params = attach_prefix_quant(params, quant_prefix_len(cfg, clip_cfg),
                                      drop_fp=True)
     return clip_cfg, params
+
+
+def check_model_axis(clip_cfg, mesh_shape) -> None:
+    """Raise where a model axis (`--mesh_shape d,m`, m > 1) would split a
+    vision tower whose row takes none (`ViTTower.model_axis`: EVA02's and
+    AIMv2's)."""
+    v = clip_cfg.vision
+    if (mesh_shape is not None and len(mesh_shape) == 2 and mesh_shape[1] > 1
+            and isinstance(v, VisionConfig)
+            and not TOWERS[v.tower].model_axis):
+        raise ValueError(f"the model axis (--mesh_shape d,m with m > 1) is "
+                         f"not supported on the {v.tower.upper()} towers")
 
 
 def make_adapters0(cfg: TTLConfig, clip_cfg, device) -> Optional[dict]:
